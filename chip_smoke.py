@@ -11,33 +11,63 @@ Phases, in order; any failure exits non-zero:
      on the same bf16 inputs, at B in {1, 8}, S in {512, 1000, 2048}, H 16,
      KV 4, D 64, with a pad segment: max |o - o_ref| <= 2e-2 (bf16 output,
      ulp 2^-8 relative) and max |lse - lse_ref| <= 1e-3. Timed at the
-     engine's prefill shape (one group of 8 prompts of 512 tokens).
+     engine's prefill shape (one group of 8 prompts of 512 tokens) and at
+     the training shape (B 16, S 2048, causal).
   4. K4 (paged decode) against paged_attention_reference in fp32 on the same
      bf16 inputs: B 32, ragged lengths in 1..2048 plus one length-0 row,
      ps 128, 16 pages per sequence: max |o - o_ref| <= 2e-2. Timed at the
      engine's decode shape (32 sequences of 513..576 tokens).
-  5. the engine end to end: the 250M-parameter GQA model (vocab 32000,
+  5. K3 (backward dQ) and K2 (backward dK, dV) against flash_bwd_reference
+     in fp32 on the same bf16 inputs (O and LSE from K1), at B in {1, 4},
+     S in {512, 1000, 2048}, H 16, KV 4, D 64, causal and not, with a pad
+     segment: max |g - g_ref| <= 2e-2 * max |g_ref| + 2e-2 for each of dq,
+     dk, dv (bf16 outputs; P and dS are rounded to bf16 before their
+     products, as in the TPU kernels, and each output sums up to S * group
+     such terms). Each timed alone at the training shape, beside the plain
+     backward and, as the library yardstick for K2 + K3 together, the
+     backward of scaled_dot_product_attention (one call: dq, dk and dv).
+  6. the engine end to end: the 250M-parameter GQA model (vocab 32000,
      d_model 1024, 12 layers, 16 heads, 4 KV heads, d_ff 4096, max_seq 2048)
      with seeded random weights, paged KV (page 128, 32 slots); warmup, then
      32 greedy requests of 512 prompt tokens and 64 new tokens. Both kernel
      launch counts are read across this run and must be > 0. The engine's
      prefill logits for all 32 prompts are held against the plain forward on
-     the card: max |diff| <= 0.25 and mean |diff| <= 0.02 (bf16 logits of
-     magnitude up to ~6, ulp 0.03, after 12 layers), and every request's
-     first token must be within that tolerance of the plain top-1 logit.
-     Then a short dense-layout run (4 requests), which runs K1 and not K4.
-  6. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+     the card (attention_impl="reference": einsum attention, no kernel):
+     max |diff| <= 0.25 and mean |diff| <= 0.02 (bf16 logits of magnitude up
+     to ~6, ulp 0.03, after 12 layers), and every request's first token must
+     be within that tolerance of the plain top-1 logit. Then a short
+     dense-layout run (4 requests), which runs K1 and not K4.
+  7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
+     gradients of one cross_entropy_loss through the kernels
+     (attention_impl="flash": K1, K3, K2) against the plain path
+     ("reference") on the same weights and batch, per leaf
+     |g - g_ref| / |g_ref| <= 5e-2 (L2 norms; bf16 activations, the two
+     paths round P and dS at different places); (b) the same model through
+     the kernels with remat off, "full" and "dots": per leaf relative
+     difference <= 5e-3 (the kernels are deterministic and the recompute
+     repeats the same ops; only reduction order may differ); (c) the
+     bench.py:57-77 configuration at full width and depth (12 layers,
+     remat "dots", AdamW) at B 16 x S 2048 on one seeded batch: a warmup
+     step, then 10 timed steps through make_train_step. The loss must be
+     finite and fall, and each step must launch K1 24 times (12 forward +
+     12 recompute), K3 12 and K2 12. Prints step time, tokens/s, MFU
+     (bench.py's formula, 6 N T + 12 L d S T, against 989 TFLOP/s) and peak
+     memory.
+  8. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 ``--profile DIR`` also traces the paged engine with torch.profiler (the
-admission step with its prefills, then two decode steps) and writes the
+admission step with its prefills, then two decode steps) and one training
+step, prints each window's device time by kind of kernel, and writes the
 kernel tables and traces to DIR.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +83,9 @@ MODEL = dict(vocab_size=32_000, d_model=1024, n_layers=12, n_heads=H, n_kv_heads
 N_REQ, PROMPT_LEN, MAX_TOKENS, SLOTS, PAGE = 32, 512, 64, 32, 128
 K1_CHECK = ((1, 512), (1, 1000), (1, 2048), (8, 512), (8, 1000), (8, 2048))  # (B, S)
 K4_B, K4_PPSEQ = 32, 16  # sequences; pages per sequence (max length 2048)
+K23_CHECK = ((1, 512), (1, 1000), (1, 2048), (4, 512), (4, 1000), (4, 2048))  # (B, S)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 2048, 10  # bench.py's batch and sequence
+PARITY_LAYERS, PARITY_B = 2, 2
 
 
 def log(*a):
@@ -87,9 +120,11 @@ def phase_device():
                          capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}  "
         f"torch {torch.__version__}  cuda {torch.version.cuda}  python {sys.version.split()[0]}")
+    return card
 
 
 def phase_build():
@@ -102,7 +137,10 @@ def phase_build():
         path = _build.log_path(name)
         if path.exists():
             for line in path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                kernel = re.search(r"([a-z_]+_kernel)", line) if "entry function" in line else None
+                if kernel:
+                    log(f"  {name}: {kernel.group(1)}")
+                elif "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
 
@@ -112,14 +150,20 @@ def _seg(B, S, rng):
     return (np.arange(S)[None, :] >= lens[:, None]).astype(np.int32)
 
 
-def k1_cost(seg, nbytes_io):
-    """FLOPs this input needs (valid causal same-segment pairs only) and bytes."""
+def causal_pairs(seg):
+    """Valid (query, key) pairs per head under the causal and segment masks
+    (segments contiguous, as the engine's pads and packed batches are)."""
     pairs = 0
     for row in seg:
         for s_id in np.unique(row):
             n = int((row == s_id).sum())
             pairs += n * (n + 1) // 2
-    return 4 * D * H * pairs, nbytes_io
+    return pairs
+
+
+def k1_cost(seg, nbytes_io):
+    """FLOPs this input needs (valid causal same-segment pairs only) and bytes."""
+    return 4 * D * H * causal_pairs(seg), nbytes_io
 
 
 def phase_k1(dev, rng):
@@ -164,8 +208,25 @@ def phase_k1(dev, rng):
     bound_ms, bound_by = bound(*k1_cost(seg_np, nbytes))
     log(f"K1 at engine shape B={B} S={S}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    del q, k, v, qt, kt, vt
+    # The training shape: bench.py's batch, one causal sequence per row.
+    B, S = TRAIN_B, TRAIN_S
+    q = torch.randn(B, S, H, D, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, D, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, D, device=dev).bfloat16()
+    t_ms = time_ms(lambda: att.flash_fwd(q, k, v, causal=True), iters=10)
+    t_plain = time_ms(lambda: att.mha_reference(q, k, v, causal=True), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    t_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+    t_bound, t_by = bound(4 * D * H * causal_pairs(np.zeros((B, S), np.int32)), nbytes)
+    log(f"K1 at training shape B={B} S={S}: kernel {t_ms:.4f} ms  plain {t_plain:.4f} ms  "
+        f"sdpa {t_lib:.4f} ms  bound {t_bound:.4f} ms ({t_by})")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                train_shape=dict(ms=t_ms, plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, bound_by=t_by))
 
 
 def _paged_case(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ):
@@ -222,6 +283,80 @@ def phase_k4(dev, rng):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _bwd_case(dev, B, S, seg=None, causal=True):
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    q = torch.randn(B, S, H, D, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, D, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, D, device=dev).bfloat16()
+    do = torch.randn(B, S, H, D, device=dev).bfloat16()
+    o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
+    return q, k, v, o, lse, do
+
+
+def phase_k23(dev, rng):
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for B, S in K23_CHECK:
+        seg = torch.from_numpy(_seg(B, S, rng)).to(dev)
+        for causal in (True, False):
+            q, k, v, o, lse, do = _bwd_case(dev, B, S, seg, causal)
+            got = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
+            torch.cuda.synchronize()
+            want = att.flash_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                           segment_ids=seg, causal=causal)
+            parts = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w).abs().max().item()
+                top = w.abs().max().item()
+                finite = bool(torch.isfinite(g).all())
+                parts.append(f"{name} {err:.3e} (max|ref| {top:.2f})")
+                if not (finite and err <= 2e-2 * top + 2e-2):
+                    raise AssertionError(f"K2/K3 {name} disagrees with its plain version at "
+                                         f"B={B} S={S} causal={causal}: {err} (max|ref| {top})")
+                worst[name] = max(worst[name], err)
+            log(f"K3/K2 B={B} S={S} causal={causal}: max|g-ref| " + "  ".join(parts))
+            del q, k, v, o, lse, do, got, want
+    torch.cuda.empty_cache()
+
+    # Timing at the training shape (causal, one sequence per row, as the
+    # train phase runs them).
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v, o, lse, do = _bwd_case(dev, B, S)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
+    dq_ms = time_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), iters=10)
+    dkv_ms = time_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta), iters=10)
+    plain_ms = time_ms(lambda: att.flash_bwd_reference(q, k, v, o, lse, do), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    pairs = B * H * S * (S + 1) // 2
+    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 2 * 4 * B * H * S  # q k v dO, LSE delta
+    dq_bound = bound(6 * D * pairs, io + 2 * q.numel())
+    dkv_bound = bound(8 * D * pairs, io + 2 * (k.numel() + v.numel()))
+    log(f"K3 (dQ) at training shape B={B} S={S}: kernel {dq_ms:.4f} ms  bound {dq_bound[0]:.4f} ms ({dq_bound[1]})")
+    log(f"K2 (dK,dV) at training shape B={B} S={S}: kernel {dkv_ms:.4f} ms  bound {dkv_bound[0]:.4f} ms "
+        f"({dkv_bound[1]})")
+    log(f"  K3 + K2 {dq_ms + dkv_ms:.4f} ms  plain backward (dq, dk, dv) {plain_ms:.4f} ms  "
+        f"sdpa backward (dq, dk, dv) {library_ms:.4f} ms")
+    del q, k, v, o, lse, do, delta, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    common = dict(plain_ms=plain_ms, library_ms=library_ms,
+                  plain_covers="flash_bwd_reference: dq, dk and dv in one call",
+                  library_covers="scaled_dot_product_attention backward: dq, dk and dv in one call; "
+                                 "compare with K3 + K2 together")
+    return (dict(max_abs_err=worst["dq"], ms=dq_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1], **common),
+            dict(max_abs_err=max(worst["dk"], worst["dv"]), ms=dkv_ms, bound_ms=dkv_bound[0],
+                 bound_by=dkv_bound[1], **common))
+
+
 def drive(eng, prompts, max_tokens):
     """Queues every prompt, steps until all finish. Returns per-request
     results and the wall times of the run."""
@@ -251,8 +386,9 @@ def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02
 
     n = len(prompts)
     toks = torch.tensor(np.stack(prompts), dtype=torch.long, device=dev)
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
     with torch.no_grad():
-        plain = forward(eng.params, toks, cfg)[:, -1].float()  # [n, V]
+        plain = forward(eng.params, toks, plain_cfg)[:, -1].float()  # [n, V]
         third = (np.zeros((n, PROMPT_LEN // PAGE), np.int32) if eng.paged
                  else np.arange(n, dtype=np.int64))  # dead page / idle slots
         served = eng._prefill_logits(np.stack(prompts), np.full(n, PROMPT_LEN, np.int32), third)
@@ -260,6 +396,7 @@ def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02
     first = torch.tensor([done[f"r{i}"]["tokens"][0] for i in range(n)], device=dev)
     gap = plain.max(dim=-1).values - plain.gather(1, first[:, None])[:, 0]
     top1 = int((first == plain.argmax(dim=-1)).sum())
+    log(f"  oracle: forward with attention_impl={plain_cfg.attention_impl!r} (einsum attention, no kernel)")
     log(f"  prefill logits vs plain forward: max|diff| {diff.max().item():.4f}  "
         f"mean|diff| {diff.mean().item():.5f}  first token top-1 {top1}/{n}  "
         f"worst top-1 gap {gap.max().item():.4f}")
@@ -336,9 +473,136 @@ def phase_engine(dev, rng, profile_dir=None):
     return stats, launches
 
 
+def _loss_grads(params, batch, cfg):
+    import torch
+
+    from ray_tpu_torch.models import cross_entropy_loss
+    from ray_tpu_torch.models.transformer import leaves
+
+    ps = leaves(params)
+    loss = cross_entropy_loss(params, batch, cfg)
+    return loss.item(), [g.float() for g in torch.autograd.grad(loss, ps)]
+
+
+def _rel_errs(got, want):
+    return [((g - w).norm() / w.norm().clamp(min=1e-30)).item() for g, w in zip(got, want)]
+
+
+def phase_train(dev, card, profile_dir=None):
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, make_train_step
+    from ray_tpu_torch.models.transformer import init_params, leaves
+    from ray_tpu_torch.ops import attention
+
+    # (a) gradient parity at full width, depth cut to 2 layers.
+    cfg = TransformerConfig(**{**MODEL, "n_layers": PARITY_LAYERS})
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = init_params(cfg, g, device=dev)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (PARITY_B, TRAIN_S + 1), generator=g, device=dev)}
+    loss_f, g_flash = _loss_grads(params, batch, dataclasses.replace(cfg, attention_impl="flash"))
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    loss_r, g_ref = _loss_grads(params, batch, plain_cfg)
+    rel = _rel_errs(g_flash, g_ref)
+    log(f"train parity ({PARITY_LAYERS} layers, B {PARITY_B} x S {TRAIN_S}, bf16): oracle attention_impl="
+        f"{plain_cfg.attention_impl!r}; loss flash {loss_f:.5f} reference {loss_r:.5f}; "
+        f"per-leaf |g-g_ref|/|g_ref| max {max(rel):.3e} mean {statistics.mean(rel):.3e}")
+    if not (math.isfinite(loss_f) and abs(loss_f - loss_r) <= 1e-2 and max(rel) <= 5e-2):
+        raise AssertionError(f"flash training gradients disagree with the plain path: {rel}")
+
+    # (b) remat off / full / dots through the kernels.
+    flash_cfg = dataclasses.replace(cfg, attention_impl="flash")
+    remat = {}
+    for policy in ("full", "dots"):
+        _, g_r = _loss_grads(params, batch, dataclasses.replace(flash_cfg, remat=True, remat_policy=policy))
+        remat[policy] = max(_rel_errs(g_r, g_flash))
+    log(f"train remat parity (through K1-K3): max per-leaf relative difference vs remat off: "
+        f"full {remat['full']:.3e}  dots {remat['dots']:.3e}")
+    if max(remat.values()) > 5e-3:
+        raise AssertionError(f"remat changes the gradients: {remat}")
+    del params, g_flash, g_ref, batch
+    torch.cuda.empty_cache()
+
+    # (c) the bench.py:57-77 configuration, full width and depth.
+    cfg = TransformerConfig(**MODEL, remat=True, remat_policy="dots")
+    init_state, train_step = make_train_step(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(g, device=dev)
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), generator=g, device=dev)}
+    t0 = time.perf_counter()
+    first = train_step(state, batch)
+    torch.cuda.synchronize()
+    log(f"train: {n_params / 1e6:.1f}M params, remat {cfg.remat_policy!r}, B {TRAIN_B} x S {TRAIN_S}, "
+        f"warmup step {time.perf_counter() - t0:.2f} s, loss {first['loss'].item():.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [train_step(state, batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {"flash_fwd": attention.LAUNCHES, "flash_bwd_dq": attention.BWD_DQ_LAUNCHES,
+                "flash_bwd_dkv": attention.BWD_DKV_LAUNCHES}
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6.0 * n_params * tokens + 12.0 * cfg.n_layers * cfg.d_model * TRAIN_S * tokens
+    stats = dict(step_ms=dt * 1e3, tokens_per_s=tokens / dt, mfu=flops / dt / PEAK_BF16_FLOPS,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, loss_first=losses[0],
+                 loss_last=losses[-1], card=card)
+    log(f"train: {TRAIN_STEPS} steps, step {stats['step_ms']:.2f} ms, {stats['tokens_per_s']:.1f} tokens/s, "
+        f"MFU {stats['mfu']:.4f} (6NT + 12LdST against 989 TFLOP/s), peak mem {stats['peak_mem_gb']:.2f} GB  "
+        f"[{card}]")
+    log(f"  loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  grad_norm {' '.join(f'{x:.3f}' for x in gnorms)}")
+    log(f"  launches in {TRAIN_STEPS} steps: K1 {launches['flash_fwd']}  K3 {launches['flash_bwd_dq']}  "
+        f"K2 {launches['flash_bwd_dkv']}")
+    if not all(math.isfinite(x) for x in losses + gnorms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss is not finite and falling: {losses}")
+    want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS, "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"kernel launches in {TRAIN_STEPS} training steps {launches} != {want}")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        _profile_window("train_step", lambda: train_step(state, batch), profile_dir)
+    del state, batch
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+# Device time by kind in a profile: (kind, substrings of the device
+# kernel's name); the first match wins, the rest is "other".
+KERNEL_KINDS = (
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K2 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K4 paged_decode", ("paged_decode_kernel",)),
+    ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reduction", ("reduce_kernel",)),
+    ("copy", ("Memcpy", "Memset")),
+    ("elementwise", ("elementwise_kernel", "CatArrayBatchedCopy")),
+)
+
+
+def _by_kind(device_events):
+    """[(kind, device us, kernels)] over the profile's device events, largest first."""
+    acc = {}
+    for e in device_events:
+        kind = next((k for k, subs in KERNEL_KINDS if any(s in e.name for s in subs)), "other")
+        us, n = acc.get(kind, (0.0, 0))
+        acc[kind] = (us + e.time_range.elapsed_us(), n + 1)
+    return sorted(((k, us, n) for k, (us, n) in acc.items()), key=lambda r: -r[1])
+
+
 def _profile_window(name, fn, out_dir):
     """torch.profiler over fn(); writes the kernel table and the trace to
-    out_dir and prints the wall time, device kernel time and top rows."""
+    out_dir and prints the wall time, device kernel time, device time by
+    kind and top rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,15 +612,20 @@ def _profile_window(name, fn, out_dir):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    # Kernels, copies and memsets; a user annotation's device span (the
+    # optimizer's step) covers kernels already counted.
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(e.time_range.elapsed_us() for e in device_events)
     ka = prof.key_averages()
     key = "self_device_time_total" if ka and hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(ka.table(sort_by=key, row_limit=60))
     prof.export_chrome_trace(os.path.join(out_dir, f"profile_{name}.json"))
     log(f"profile {name}: wall {wall * 1e3:.2f} ms, device kernel time {dev_us / 1e3:.2f} ms "
-        f"(busy share {dev_us / 1e6 / wall:.3f})")
+        f"(busy share {dev_us / 1e6 / wall:.3f}), {len(device_events)} device events")
+    for kind, us, n in _by_kind(device_events):
+        log(f"  {kind}: {us / 1e3:.2f} ms ({100 * us / max(dev_us, 1e-9):.1f} %, {n} events)")
     log(ka.table(sort_by=key, row_limit=12))
 
 
@@ -374,7 +643,7 @@ def profile_engine(eng, prompts, out_dir):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", metavar="DIR", help="also trace the paged engine's steps into DIR")
+    ap.add_argument("--profile", metavar="DIR", help="also trace the paged engine's steps and a training step into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -391,18 +660,28 @@ def main(argv=None):
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
     t_start = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     k1 = phase_k1(dev, rng)
     k4 = phase_k4(dev, rng)
+    k3, k2 = phase_k23(dev, rng)
     stats, launches = phase_engine(dev, rng, args.profile)
+    train, t_launches = phase_train(dev, card, args.profile)
+    bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [
         dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
-             replaces="ray_tpu/ops/attention.py:92", launches=launches["flash_fwd"], **k1),
+             replaces="ray_tpu/ops/attention.py:92",
+             launches=launches["flash_fwd"] + t_launches["flash_fwd"],
+             launches_by_path={"serve": launches["flash_fwd"], "train": t_launches["flash_fwd"]}, **k1),
+        dict(name="flash_bwd_dq", route="cuda", source=bwd_src, replaces="ray_tpu/ops/attention.py:277",
+             launches=t_launches["flash_bwd_dq"], **k3),
+        dict(name="flash_bwd_dkv", route="cuda", source=bwd_src, replaces="ray_tpu/ops/attention.py:210",
+             launches=t_launches["flash_bwd_dkv"], **k2),
         dict(name="paged_decode", route="cuda", source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:67", launches=launches["paged_decode"], **k4),
     ]
     log(json.dumps({"engine": stats}))
+    log(json.dumps({"train": train}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

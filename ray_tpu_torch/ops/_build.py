@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT = Path(__file__).resolve().parent / "_build_out"
-SOURCES = ("flash_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

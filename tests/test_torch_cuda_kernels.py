@@ -1,10 +1,13 @@
-"""Kernels K1 and K4 against their plain versions on the GPU.
+"""Kernels K1-K4 against their plain versions on the GPU.
 
 Runs only where a CUDA device and nvcc exist (``-m cuda``); elsewhere each
 test skips with the reason. ``python3 chip_smoke.py`` runs the same checks
-at the serving shapes, plus the engine end to end. Tolerances: bf16 output
-against an fp32 plain version on the same bf16 inputs, 2e-2 (bf16 ulp is
-2^-8 relative); LSE in fp32, 1e-3.
+at the serving and training shapes, plus the engine and the training step
+end to end. Tolerances: bf16 output against an fp32 plain version on the
+same bf16 inputs, 2e-2 (bf16 ulp is 2^-8 relative); LSE in fp32, 1e-3. The
+backward (K3 dQ, K2 dK/dV) rounds P and dS to bf16 before its products, as
+the TPU kernels do, and sums up to S * group such terms: gradients are held
+to 2e-2 of their largest magnitude plus 2e-2 absolute.
 """
 import math
 
@@ -50,13 +53,58 @@ def test_flash_kernel_matches_plain(dev, B, S, H, KV, causal):
     assert (lse - lse_ref.reshape(B * H, S)).abs().max().item() <= 1e-3
 
 
-def test_flash_wrapper_refuses_gradients(dev):
-    from ray_tpu_torch.ops.attention import flash_attention
+def _qkv(dev, B, S, H, KV, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, 64, device=dev, generator=g).bfloat16()
+    k = torch.randn(B, S, KV, 64, device=dev, generator=g).bfloat16()
+    v = torch.randn(B, S, KV, 64, device=dev, generator=g).bfloat16()
+    do = torch.randn(B, S, H, 64, device=dev, generator=g).bfloat16()
+    lens = torch.tensor([S - 7 * i for i in range(B)], device=dev)
+    seg = (torch.arange(S, device=dev)[None] >= lens[:, None]).int()
+    return q, k, v, do, seg
 
-    q = torch.randn(1, 64, 4, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    k = torch.randn(1, 64, 4, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        flash_attention(q, k, k)
+
+def _close(got, want):
+    err = (got.float() - want).abs().max().item()
+    return err <= 2e-2 * want.abs().max().item() + 2e-2, err
+
+
+@pytest.mark.parametrize("B,S,H,KV", [(1, 128, 4, 4), (2, 1000, 16, 4), (3, 333, 8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, causal):
+    from ray_tpu_torch.ops import attention as att
+
+    q, k, v, do, seg = _qkv(dev, B, S, H, KV, seed=B * S + causal)
+    o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
+    before = (att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
+    grads = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
+    torch.cuda.synchronize()
+    assert (att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = att.flash_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                   segment_ids=seg, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()), name
+        ok, err = _close(g, w)
+        assert ok, (name, err)
+
+
+def test_flash_attention_autograd_runs_the_three_kernels(dev):
+    from ray_tpu_torch.ops import attention as att
+
+    q, k, v, do, seg = _qkv(dev, 2, 300, 8, 2, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (att.LAUNCHES, att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
+    # dO reaches the backward strided (the same values, heads-major in
+    # memory), as the model's output projection can hand it back.
+    do_strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    (att.flash_attention(*leaves, causal=True, segment_ids=seg) * do_strided).sum().backward()
+    torch.cuda.synchronize()
+    assert (att.LAUNCHES, att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES) == tuple(n + 1 for n in before)
+    ref = [t.float().detach().requires_grad_(True) for t in (q, k, v)]
+    (att.mha_reference(*ref, causal=True, segment_ids=seg) * do.float()).sum().backward()
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, ref):
+        ok, err = _close(got.grad, want.grad)
+        assert ok, (name, err)
 
 
 @pytest.mark.parametrize("H,KV,ps", [(16, 4, 128), (8, 8, 16), (8, 1, 64)])
