@@ -23,9 +23,18 @@ Phases, in order; any failure exits non-zero:
      segment: max |g - g_ref| <= 2e-2 * max |g_ref| + 2e-2 for each of dq,
      dk, dv (bf16 outputs; P and dS are rounded to bf16 before their
      products, as in the TPU kernels, and each output sums up to S * group
-     such terms). Each timed alone at the training shape, beside the plain
-     backward and, as the library yardstick for K2 + K3 together, the
-     backward of scaled_dot_product_attention (one call: dq, dk and dv).
+     such terms). The same check at MQA (B 2, S 1000, H 8, KV 1), with
+     three packed segments per row (B 2, S 2048), at S 64 (one tile) and
+     S 33 (H 8, KV 2), then two launches of each kernel on the same inputs
+     must be bitwise equal (no atomics). Each timed alone at the training
+     shape (TFLOP/s reached, times its bound), beside the plain backward
+     and, as the library yardstick for K2 + K3 together, the backward of
+     scaled_dot_product_attention (one call: dq, dk and dv).
+  5b. K5, splash onto K1-K3: K1, K3 and K2 on splash's inputs (q folded
+     with the softmax scale in fp32, scale 1.0) against the plain versions
+     on the same inputs (B 2, S 2048, packed segments; the tolerances of
+     phases 3 and 5), then timed at the training shape beside the plain
+     forward + backward and SDPA's forward + backward.
   6. the engine end to end: the 250M-parameter GQA model (vocab 32000,
      d_model 1024, 12 layers, 16 heads, 4 KV heads, d_ff 4096, max_seq 2048)
      with seeded random weights, paged KV (page 128, 32 slots); warmup, then
@@ -45,7 +54,11 @@ Phases, in order; any failure exits non-zero:
      paths round P and dS at different places); (b) the same model through
      the kernels with remat off, "full" and "dots": per leaf relative
      difference <= 5e-3 (the kernels are deterministic and the recompute
-     repeats the same ops; only reduction order may differ); (c) the
+     repeats the same ops; only reduction order may differ); (c) the same
+     model with attention_impl="splash" (K5: K1, K3, K2 on the folded q)
+     against "flash": loss within 5e-2 and per-leaf relative difference
+     <= 5e-2 (splash rounds q * scale to bf16 before the kernel, flash
+     scales in fp32 inside it), each of K1, K3, K2 launched; (d) the
      bench.py:57-77 configuration at full width and depth (12 layers,
      remat "dots", AdamW) at B 16 x S 2048 on one seeded batch: a warmup
      step, then 10 timed steps through make_train_step. The loss must be
@@ -84,6 +97,8 @@ N_REQ, PROMPT_LEN, MAX_TOKENS, SLOTS, PAGE = 32, 512, 64, 32, 128
 K1_CHECK = ((1, 512), (1, 1000), (1, 2048), (8, 512), (8, 1000), (8, 2048))  # (B, S)
 K4_B, K4_PPSEQ = 32, 16  # sequences; pages per sequence (max length 2048)
 K23_CHECK = ((1, 512), (1, 1000), (1, 2048), (4, 512), (4, 1000), (4, 2048))  # (B, S)
+# (B, S, H, KV, segments): MQA, three packed segments per row, one tile, under one tile.
+K23_EXTRA = ((2, 1000, 8, 1, "pad"), (2, 2048, H, KV, "packed"), (2, 64, H, KV, "pad"), (3, 33, 8, 2, "pad"))
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 2048, 10  # bench.py's batch and sequence
 PARITY_LAYERS, PARITY_B = 2, 2
 
@@ -144,10 +159,15 @@ def phase_build():
                     log(f"  {name}: {line.strip()}")
 
 
-def _seg(B, S, rng):
-    """Prompt padding as the engine builds it: pads are their own segment."""
+def _seg(B, S, rng, kind="pad"):
+    """"pad": prompt padding as the engine builds it (pads are their own
+    segment); "packed": three packed examples per row, cut at random places."""
+    pos = np.arange(S)[None, :]
+    if kind == "packed":
+        cuts = np.sort(rng.integers(1, S, (B, 2)), axis=1)
+        return ((pos >= cuts[:, :1]).astype(np.int32) + (pos >= cuts[:, 1:]).astype(np.int32))
     lens = rng.integers(S // 2, S + 1, B)
-    return (np.arange(S)[None, :] >= lens[:, None]).astype(np.int32)
+    return (pos >= lens[:, None]).astype(np.int32)
 
 
 def causal_pairs(seg):
@@ -283,17 +303,42 @@ def phase_k4(dev, rng):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _bwd_case(dev, B, S, seg=None, causal=True):
+def _bwd_case(dev, B, S, seg=None, causal=True, h=H, kv=KV):
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
-    q = torch.randn(B, S, H, D, device=dev).bfloat16()
-    k = torch.randn(B, S, KV, D, device=dev).bfloat16()
-    v = torch.randn(B, S, KV, D, device=dev).bfloat16()
-    do = torch.randn(B, S, H, D, device=dev).bfloat16()
+    q = torch.randn(B, S, h, D, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, D, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, D, device=dev).bfloat16()
+    do = torch.randn(B, S, h, D, device=dev).bfloat16()
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     return q, k, v, o, lse, do
+
+
+def _check_k23(dev, B, S, seg, causal, worst, h=H, kv=KV, label=""):
+    """K3 and K2 (through flash_bwd) against flash_bwd_reference in fp32 on
+    the same bf16 inputs."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    q, k, v, o, lse, do = _bwd_case(dev, B, S, seg, causal, h, kv)
+    got = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
+    torch.cuda.synchronize()
+    want = att.flash_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                   segment_ids=seg, causal=causal)
+    parts = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        finite = bool(torch.isfinite(g).all())
+        parts.append(f"{name} {err:.3e} (max|ref| {top:.2f})")
+        if not (finite and err <= 2e-2 * top + 2e-2):
+            raise AssertionError(f"K2/K3 {name} disagrees with its plain version at "
+                                 f"B={B} S={S} H={h} KV={kv} {label} causal={causal}: {err} (max|ref| {top})")
+        worst[name] = max(worst[name], err)
+    log(f"K3/K2 B={B} S={S} H={h} KV={kv} {label} causal={causal}: max|g-ref| " + "  ".join(parts))
 
 
 def phase_k23(dev, rng):
@@ -305,23 +350,27 @@ def phase_k23(dev, rng):
     for B, S in K23_CHECK:
         seg = torch.from_numpy(_seg(B, S, rng)).to(dev)
         for causal in (True, False):
-            q, k, v, o, lse, do = _bwd_case(dev, B, S, seg, causal)
-            got = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
-            torch.cuda.synchronize()
-            want = att.flash_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-                                           segment_ids=seg, causal=causal)
-            parts = []
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                err = (g.float() - w).abs().max().item()
-                top = w.abs().max().item()
-                finite = bool(torch.isfinite(g).all())
-                parts.append(f"{name} {err:.3e} (max|ref| {top:.2f})")
-                if not (finite and err <= 2e-2 * top + 2e-2):
-                    raise AssertionError(f"K2/K3 {name} disagrees with its plain version at "
-                                         f"B={B} S={S} causal={causal}: {err} (max|ref| {top})")
-                worst[name] = max(worst[name], err)
-            log(f"K3/K2 B={B} S={S} causal={causal}: max|g-ref| " + "  ".join(parts))
-            del q, k, v, o, lse, do, got, want
+            _check_k23(dev, B, S, seg, causal, worst, label="pad")
+    for B, S, h, kv, kind in K23_EXTRA:
+        seg = torch.from_numpy(_seg(B, S, rng, kind)).to(dev)
+        for causal in (True, False):
+            _check_k23(dev, B, S, seg, causal, worst, h, kv, label=kind)
+    torch.cuda.empty_cache()
+
+    # Determinism: no atomics, a fixed summation order; two launches of each
+    # kernel on the same inputs give the same bits.
+    B, S = 2, TRAIN_S
+    seg = torch.from_numpy(_seg(B, S, rng, "packed")).to(dev)
+    q, k, v, o, lse, do = _bwd_case(dev, B, S, seg)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
+    runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, seg), *att.flash_bwd_dkv(q, k, v, do, lse, delta, seg))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    log(f"K3/K2 determinism (B={B} S={S} packed, two launches): dq {same[0]}  dk {same[1]}  dv {same[2]} bitwise equal")
+    if not all(same):
+        raise AssertionError("K3/K2 are not deterministic: two launches on the same inputs differ")
+    del q, k, v, o, lse, do, delta, runs
     torch.cuda.empty_cache()
 
     # Timing at the training shape (causal, one sequence per row, as the
@@ -341,11 +390,12 @@ def phase_k23(dev, rng):
     io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 2 * 4 * B * H * S  # q k v dO, LSE delta
     dq_bound = bound(6 * D * pairs, io + 2 * q.numel())
     dkv_bound = bound(8 * D * pairs, io + 2 * (k.numel() + v.numel()))
-    log(f"K3 (dQ) at training shape B={B} S={S}: kernel {dq_ms:.4f} ms  bound {dq_bound[0]:.4f} ms ({dq_bound[1]})")
-    log(f"K2 (dK,dV) at training shape B={B} S={S}: kernel {dkv_ms:.4f} ms  bound {dkv_bound[0]:.4f} ms "
-        f"({dkv_bound[1]})")
-    log(f"  K3 + K2 {dq_ms + dkv_ms:.4f} ms  plain backward (dq, dk, dv) {plain_ms:.4f} ms  "
-        f"sdpa backward (dq, dk, dv) {library_ms:.4f} ms")
+    for name, ms, flops, (b_ms, b_by) in (("K3 (dQ)", dq_ms, 6 * D * pairs, dq_bound),
+                                          ("K2 (dK,dV)", dkv_ms, 8 * D * pairs, dkv_bound)):
+        log(f"{name} at training shape B={B} S={S}: kernel {ms:.4f} ms  {flops / ms / 1e9:.1f} TFLOP/s  "
+            f"bound {b_ms:.4f} ms ({b_by})  {ms / b_ms:.2f}x bound")
+    log(f"  K3 + K2 {dq_ms + dkv_ms:.4f} ms = {(dq_ms + dkv_ms) / library_ms:.2f}x sdpa backward (dq, dk, dv) "
+        f"{library_ms:.4f} ms;  plain backward (dq, dk, dv) {plain_ms:.4f} ms")
     del q, k, v, o, lse, do, delta, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
     common = dict(plain_ms=plain_ms, library_ms=library_ms,
@@ -355,6 +405,72 @@ def phase_k23(dev, rng):
     return (dict(max_abs_err=worst["dq"], ms=dq_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1], **common),
             dict(max_abs_err=max(worst["dk"], worst["dv"]), ms=dkv_ms, bound_ms=dkv_bound[0],
                  bound_by=dkv_bound[1], **common))
+
+
+def phase_splash(dev, rng, k1_train, k3, k2):
+    """K5, splash onto K1-K3: the kernels on splash's inputs (q folded with
+    the softmax scale in fp32, scale 1.0), held against the plain version on
+    the same inputs at B 2 x S 2048 with packed segments, then timed at the
+    training shape beside the plain forward + backward and SDPA's."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    def inputs(B, S):
+        """q folded as the splash wrapper folds it, k, v, dO."""
+        q = (torch.randn(B, S, H, D, device=dev) * (1.0 / math.sqrt(D))).bfloat16()
+        return q, *(torch.randn(B, S, n, D, device=dev).bfloat16() for n in (KV, KV, H))
+
+    B, S = 2, TRAIN_S
+    seg = torch.from_numpy(_seg(B, S, rng, "packed")).to(dev)
+    qs, k, v, do = inputs(B, S)
+    o, lse = att.flash_fwd(qs, k, v, segment_ids=seg, causal=True, scale=1.0)
+    got = (o, *att.flash_bwd(qs, k, v, o, lse, do, segment_ids=seg, causal=True, scale=1.0))
+    torch.cuda.synchronize()
+    o_ref = att.mha_reference(qs.float(), k.float(), v.float(), causal=True, scale=1.0, segment_ids=seg)
+    want = (o_ref, *att.flash_bwd_reference(qs.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                            segment_ids=seg, causal=True, scale=1.0))
+    errs = {}
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        errs[name] = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        if not (bool(torch.isfinite(g).all()) and errs[name] <= 2e-2 * top + 2e-2):
+            raise AssertionError(f"splash {name} disagrees with its plain version: {errs[name]} (max|ref| {top})")
+    log(f"splash (K1, K3, K2 on q * scale, scale 1.0) B={B} S={S} packed: max|g-ref| "
+        + "  ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    del k, v, o, lse, do, qs, got, want, o_ref
+    torch.cuda.empty_cache()
+
+    B, S = TRAIN_B, TRAIN_S
+    qs, k, v, do = inputs(B, S)
+    o, lse = att.flash_fwd(qs, k, v, causal=True, scale=1.0)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
+    t_fwd = time_ms(lambda: att.flash_fwd(qs, k, v, causal=True, scale=1.0), iters=10)
+    t_dq = time_ms(lambda: att.flash_bwd_dq(qs, k, v, do, lse, delta, scale=1.0), iters=10)
+    t_dkv = time_ms(lambda: att.flash_bwd_dkv(qs, k, v, do, lse, delta, scale=1.0), iters=10)
+    plain_ms = time_ms(lambda: (att.mha_reference(qs, k, v, causal=True, scale=1.0),
+                                att.flash_bwd_reference(qs, k, v, o, lse, do, scale=1.0)), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (qs, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        out = sdpa(qt, kt, vt, is_causal=True, scale=1.0, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    library_ms = time_ms(library, iters=10)
+    ms = t_fwd + t_dq + t_dkv
+    bound_ms = k1_train["bound_ms"] + k3["bound_ms"] + k2["bound_ms"]
+    log(f"splash at training shape B={B} S={S}: K1 {t_fwd:.4f} + K3 {t_dq:.4f} + K2 {t_dkv:.4f} = {ms:.4f} ms  "
+        f"plain forward + backward {plain_ms:.4f} ms  sdpa forward + backward {library_ms:.4f} ms  "
+        f"bound {bound_ms:.4f} ms (operations)")
+    del k, v, o, lse, do, qs, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs.values()), ms=ms, ms_by_kernel={"K1": t_fwd, "K3": t_dq, "K2": t_dkv},
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by="operations",
+                plain_covers="mha_reference + flash_bwd_reference on the folded q",
+                library_covers="scaled_dot_product_attention forward + backward (scale 1.0) in one call each")
 
 
 def drive(eng, prompts, max_tokens):
@@ -522,10 +638,26 @@ def phase_train(dev, card, profile_dir=None):
         f"full {remat['full']:.3e}  dots {remat['dots']:.3e}")
     if max(remat.values()) > 5e-3:
         raise AssertionError(f"remat changes the gradients: {remat}")
-    del params, g_flash, g_ref, batch
+
+    # (c) splash (K5) onto K1-K3: the same model and batch with
+    # attention_impl="splash" against "flash".
+    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+    loss_s, g_splash = _loss_grads(params, batch, dataclasses.replace(cfg, attention_impl="splash"))
+    torch.cuda.synchronize()
+    splash_launches = {"flash_fwd": attention.LAUNCHES, "flash_bwd_dq": attention.BWD_DQ_LAUNCHES,
+                       "flash_bwd_dkv": attention.BWD_DKV_LAUNCHES}
+    rel_s = _rel_errs(g_splash, g_flash)
+    log(f"train splash parity ({PARITY_LAYERS} layers): loss splash {loss_s:.5f} flash {loss_f:.5f}; per-leaf "
+        f"|g-g_flash|/|g_flash| max {max(rel_s):.3e}; launches in one loss + gradient: K1 "
+        f"{splash_launches['flash_fwd']}  K3 {splash_launches['flash_bwd_dq']}  K2 {splash_launches['flash_bwd_dkv']}")
+    if not (math.isfinite(loss_s) and abs(loss_s - loss_f) <= 5e-2 and max(rel_s) <= 5e-2):
+        raise AssertionError(f"splash training gradients disagree with flash: loss {loss_s} vs {loss_f}, {rel_s}")
+    if min(splash_launches.values()) == 0:
+        raise AssertionError(f"splash did not run through K1-K3: {splash_launches}")
+    del params, g_flash, g_ref, g_splash, batch
     torch.cuda.empty_cache()
 
-    # (c) the bench.py:57-77 configuration, full width and depth.
+    # (d) the bench.py:57-77 configuration, full width and depth.
     cfg = TransformerConfig(**MODEL, remat=True, remat_policy="dots")
     init_state, train_step = make_train_step(cfg)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -571,7 +703,7 @@ def phase_train(dev, card, profile_dir=None):
         _profile_window("train_step", lambda: train_step(state, batch), profile_dir)
     del state, batch
     torch.cuda.empty_cache()
-    return stats, launches
+    return stats, launches, splash_launches
 
 
 # Device time by kind in a profile: (kind, substrings of the device
@@ -665,8 +797,9 @@ def main(argv=None):
     k1 = phase_k1(dev, rng)
     k4 = phase_k4(dev, rng)
     k3, k2 = phase_k23(dev, rng)
+    splash = phase_splash(dev, rng, k1["train_shape"], k3, k2)
     stats, launches = phase_engine(dev, rng, args.profile)
-    train, t_launches = phase_train(dev, card, args.profile)
+    train, t_launches, s_launches = phase_train(dev, card, args.profile)
     bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [
         dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -679,6 +812,9 @@ def main(argv=None):
              launches=t_launches["flash_bwd_dkv"], **k2),
         dict(name="paged_decode", route="cuda", source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:67", launches=launches["paged_decode"], **k4),
+        dict(name="splash", route="onto K1-K3", source="ray_tpu_torch/ops/splash.py",
+             replaces="ray_tpu/ops/splash.py:33", launches=sum(s_launches.values()),
+             launches_by_kernel=s_launches, **splash),
     ]
     log(json.dumps({"engine": stats}))
     log(json.dumps({"train": train}))

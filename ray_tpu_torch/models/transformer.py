@@ -18,7 +18,8 @@ dims), the materialised and the chunked cross-entropy, and
 ``make_train_step`` with AdamW. Attention dispatches on
 ``attention_impl``: "auto" is the flash kernels (K1 forward, K3/K2
 backward) for CUDA tensors and the plain einsum version elsewhere, as the
-JAX code picks flash on the TPU. Not carried over: ``attention_block_q/k``
+JAX code picks flash on the TPU; "splash" keeps the JAX splash wrapper's
+contract (causal, scale folded into q) on the same kernels. Not carried over: ``attention_block_q/k``
 (TPU tile sizes; the CUDA kernels have fixed 64-row tiles), and
 ``state_logical_axes`` and ``make_pipeline_train_step``, which wait for the
 parallelism slice.
@@ -40,6 +41,7 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.splash import splash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +64,7 @@ class TransformerConfig:
     # "dots" keeps the outputs of the matmuls without batch dims (the JAX
     # policy dots_with_no_batch_dims_saveable) and recomputes the rest.
     remat_policy: str = "full"
-    attention_impl: str = "auto"  # auto | flash | reference (splash | ring | ulysses: later slices)
+    attention_impl: str = "auto"  # auto | flash | reference | splash (ring | ulysses: later slices)
     # Training loss over sequence chunks of this size, so the full [B, S, V]
     # logits never materialise (0 = off). Needs chunk | (S - 1).
     ce_chunk: int = 0
@@ -237,12 +239,11 @@ def _attention(q, k, v, cfg: TransformerConfig, segment_ids=None):
     if impl == "reference":
         return mha_reference(q, k, v, causal=True, segment_ids=segment_ids)
     if impl == "splash":
-        raise NotImplementedError(
-            "attention_impl='splash' is not ported yet (ROADMAP.md Queue 1 item 4: splash onto K1-K3)")
+        return splash_attention(q, k, v, causal=True, segment_ids=segment_ids)
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention_impl={impl!r} is not ported yet (ROADMAP.md Queue 1 item 6: parallelism)")
-    raise ValueError(f"unknown attention_impl {impl!r} (auto|flash|reference)")
+    raise ValueError(f"unknown attention_impl {impl!r} (auto|flash|reference|splash)")
 
 
 def moe_ffn(x, p, cfg: TransformerConfig):

@@ -53,14 +53,22 @@ def test_flash_kernel_matches_plain(dev, B, S, H, KV, causal):
     assert (lse - lse_ref.reshape(B * H, S)).abs().max().item() <= 1e-3
 
 
-def _qkv(dev, B, S, H, KV, seed):
+def _qkv(dev, B, S, H, KV, seed, segs="pad"):
+    """Inputs of the backward. segs "pad": a pad segment at the end of each
+    row (7 more tokens per row); "packed": three packed segments per row,
+    boundaries at other places in each row."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, 64, device=dev, generator=g).bfloat16()
     k = torch.randn(B, S, KV, 64, device=dev, generator=g).bfloat16()
     v = torch.randn(B, S, KV, 64, device=dev, generator=g).bfloat16()
     do = torch.randn(B, S, H, 64, device=dev, generator=g).bfloat16()
-    lens = torch.tensor([S - 7 * i for i in range(B)], device=dev)
-    seg = (torch.arange(S, device=dev)[None] >= lens[:, None]).int()
+    pos = torch.arange(S, device=dev)[None]
+    if segs == "packed":
+        cuts = torch.tensor([[S // 3 + 5 * i, 2 * S // 3 - 11 * i] for i in range(B)], device=dev)
+        seg = ((pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int())
+    else:
+        lens = torch.tensor([S - 7 * i for i in range(B)], device=dev)
+        seg = (pos >= lens[:, None]).int()
     return q, k, v, do, seg
 
 
@@ -69,12 +77,19 @@ def _close(got, want):
     return err <= 2e-2 * want.abs().max().item() + 2e-2, err
 
 
-@pytest.mark.parametrize("B,S,H,KV", [(1, 128, 4, 4), (2, 1000, 16, 4), (3, 333, 8, 2)])
+# (B, S, H, KV, segments): GQA, MHA and MQA (H 8, KV 1); a pad segment or
+# three packed segments per row; S a multiple of the 64-row tile, ragged
+# (333, 1000, 33 < one tile) and exactly one tile (64).
+BWD_CASES = [(1, 128, 4, 4, "pad"), (2, 1000, 16, 4, "pad"), (3, 333, 8, 2, "pad"), (2, 512, 8, 1, "pad"),
+             (2, 700, 16, 4, "packed"), (1, 64, 4, 2, "pad"), (2, 33, 8, 2, "pad")]
+
+
+@pytest.mark.parametrize("B,S,H,KV,segs", BWD_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, causal):
+def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, segs, causal):
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, do, seg = _qkv(dev, B, S, H, KV, seed=B * S + causal)
+    q, k, v, do, seg = _qkv(dev, B, S, H, KV, seed=B * S + causal, segs=segs)
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     before = (att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
     grads = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
@@ -86,6 +101,22 @@ def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, causal):
         assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()), name
         ok, err = _close(g, w)
         assert ok, (name, err)
+
+
+@pytest.mark.parametrize("segs", ["pad", "packed"])
+def test_flash_bwd_kernels_are_deterministic(dev, segs):
+    """K3 and K2 sum in a fixed order (no atomics): two launches on the same
+    inputs give the same bits."""
+    from ray_tpu_torch.ops import attention as att
+
+    q, k, v, do, seg = _qkv(dev, 2, 1000, 16, 4, seed=11, segs=segs)
+    o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(-1, 1000)
+    runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, seg), *att.flash_bwd_dkv(q, k, v, do, lse, delta, seg))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_autograd_runs_the_three_kernels(dev):

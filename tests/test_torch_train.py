@@ -165,8 +165,8 @@ def test_unknown_remat_policy_and_unported_attention_raise():
     params = tt.init_params(tc, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="remat_policy"):
         tt.forward_hidden(params, toks, dataclasses.replace(tc, remat=True, remat_policy="offload"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tt.forward(params, toks, dataclasses.replace(tc, attention_impl="splash"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tt.forward(params, toks, dataclasses.replace(tc, attention_impl="ring"))
 
 
 def test_train_steps_match_jax_adamw():
