@@ -9,14 +9,26 @@ Phases, in order; any failure exits non-zero:
      per source, in parallel) into ray_tpu_torch/ops/_build_out.
   3. K1 (flash forward) against its plain version, mha_reference in fp32
      on the same bf16 inputs, at B in {1, 8}, S in {512, 1000, 2048}, H 16,
-     KV 4, D 64, with a pad segment: max |o - o_ref| <= 2e-2 (bf16 output,
-     ulp 2^-8 relative) and max |lse - lse_ref| <= 1e-3. Timed at the
+     KV 4, D 64, causal and not, with a pad segment, plus MQA (H 8, KV 1),
+     three packed segments per row, S 64 and S 33: max |o - o_ref| <= 2e-2
+     (bf16 output, ulp 2^-8 relative) and max |lse - lse_ref| <= 1e-3; two
+     launches on the same inputs must be bitwise equal. Timed at the
      engine's prefill shape (one group of 8 prompts of 512 tokens) and at
-     the training shape (B 16, S 2048, causal).
+     the training shape (B 16, S 2048, causal), with TFLOP/s and the time
+     over its bound. Every kernel's `ms` (and SDPA's forward) is its device
+     time from a CUDA graph of back-to-back calls (device_ms); `eager_ms`
+     (K1 at the prefill shape, K4) is the eager back-to-back time, which at
+     those shapes is the wrapper's host time.
   4. K4 (paged decode) against paged_attention_reference in fp32 on the same
      bf16 inputs: B 32, ragged lengths in 1..2048 plus one length-0 row,
-     ps 128, 16 pages per sequence: max |o - o_ref| <= 2e-2. Timed at the
-     engine's decode shape (32 sequences of 513..576 tokens).
+     ps 128, 16 pages per sequence; then page sizes 16, 64 and 128 x groups
+     1, 2, 4 and 8 x B 1 (one sequence over most of a 2048-token table: the
+     split's case) and B 32 (lengths 0, 1, two pages exactly, the full
+     table, the rest random): max |o - o_ref| <= 2e-2, length-0 rows zero.
+     Two launches must be bitwise equal, and a call at another batch size
+     in between must agree with its plain version (the ticket counters were
+     reset). Timed at the engine's decode shape (32 sequences of 513..576
+     tokens).
   5. K3 (backward dQ) and K2 (backward dK, dV) against flash_bwd_reference
      in fp32 on the same bf16 inputs (O and LSE from K1), at B in {1, 4},
      S in {512, 1000, 2048}, H 16, KV 4, D 64, causal and not, with a pad
@@ -96,6 +108,7 @@ MODEL = dict(vocab_size=32_000, d_model=1024, n_layers=12, n_heads=H, n_kv_heads
 N_REQ, PROMPT_LEN, MAX_TOKENS, SLOTS, PAGE = 32, 512, 64, 32, 128
 K1_CHECK = ((1, 512), (1, 1000), (1, 2048), (8, 512), (8, 1000), (8, 2048))  # (B, S)
 K4_B, K4_PPSEQ = 32, 16  # sequences; pages per sequence (max length 2048)
+K4_PAGES, K4_GROUPS = (16, 64, 128), (1, 2, 4, 8)  # K4's sweep: page sizes, q heads per kv head
 K23_CHECK = ((1, 512), (1, 1000), (1, 2048), (4, 512), (4, 1000), (4, 2048))  # (B, S)
 # (B, S, H, KV, segments): MQA, three packed segments per row, one tile, under one tile.
 K23_EXTRA = ((2, 1000, 8, 1, "pad"), (2, 2048, H, KV, "packed"), (2, 64, H, KV, "pad"), (3, 33, 8, 2, "pad"))
@@ -108,7 +121,10 @@ def log(*a):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+    """Mean time of one call from CUDA events around `iters` eager calls.
+    Where a call's host work (the Python wrapper, the launch) takes longer
+    than its kernels, this is the host's time: the card waits between
+    calls. Used for the plain versions and for SDPA's backward."""
     import torch
 
     for _ in range(warmup):
@@ -121,6 +137,35 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, replays=3):
+    """Mean device time of one call: `iters` calls captured in one CUDA graph
+    (after warmup calls on a side stream), replayed `replays` times between
+    CUDA events, so no host work stands between the kernels. The kernels'
+    `ms` and SDPA's forward are timed so."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(flops, nbytes):
@@ -186,6 +231,31 @@ def k1_cost(seg, nbytes_io):
     return 4 * D * H * causal_pairs(seg), nbytes_io
 
 
+def _check_k1(dev, B, S, seg, causal, h=H, kv=KV, label="pad"):
+    """K1 against mha_reference in fp32 on the same bf16 inputs; returns
+    max |o - o_ref|."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    q = torch.randn(B, S, h, D, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, D, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, D, device=dev).bfloat16()
+    o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = att.mha_reference(q.float(), k.float(), v.float(), causal=causal,
+                                       segment_ids=seg, return_lse=True)
+    err = (o.float() - o_ref).abs().max().item()
+    lse_err = (lse - lse_ref.reshape(B * h, S)).abs().max().item()
+    finite = bool(torch.isfinite(o).all())
+    log(f"K1 B={B} S={S} H={h} KV={kv} {label} causal={causal}: max|o-ref| {err:.3e}  "
+        f"max|lse-ref| {lse_err:.3e}  finite {finite}")
+    if not (finite and err <= 2e-2 and lse_err <= 1e-3):
+        raise AssertionError(f"K1 disagrees with its plain version at B={B} S={S} H={h} KV={kv} {label} "
+                             f"causal={causal}")
+    return err
+
+
 def phase_k1(dev, rng):
     import torch
 
@@ -193,22 +263,26 @@ def phase_k1(dev, rng):
 
     worst = 0.0
     for B, S in K1_CHECK:
-        q = torch.randn(B, S, H, D, device=dev).bfloat16()
-        k = torch.randn(B, S, KV, D, device=dev).bfloat16()
-        v = torch.randn(B, S, KV, D, device=dev).bfloat16()
         seg = torch.from_numpy(_seg(B, S, rng)).to(dev)
-        o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=True)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = att.mha_reference(q.float(), k.float(), v.float(), causal=True,
-                                           segment_ids=seg, return_lse=True)
-        err = (o.float() - o_ref).abs().max().item()
-        lse_err = (lse - lse_ref.reshape(B * H, S)).abs().max().item()
-        finite = bool(torch.isfinite(o).all())
-        log(f"K1 B={B} S={S}: max|o-ref| {err:.3e}  max|lse-ref| {lse_err:.3e}  finite {finite}")
-        if not (finite and err <= 2e-2 and lse_err <= 1e-3):
-            raise AssertionError(f"K1 disagrees with its plain version at B={B} S={S}")
-        worst = max(worst, err)
-        del o_ref, lse_ref
+        for causal in (True, False):
+            worst = max(worst, _check_k1(dev, B, S, seg, causal))
+    for B, S, h, kv, kind in K23_EXTRA:
+        seg = torch.from_numpy(_seg(B, S, rng, kind)).to(dev)
+        for causal in (True, False):
+            worst = max(worst, _check_k1(dev, B, S, seg, causal, h, kv, kind))
+    torch.cuda.empty_cache()
+    # Determinism: no atomics; two launches on the same inputs give the same bits.
+    B, S = 2, TRAIN_S
+    seg = torch.from_numpy(_seg(B, S, rng, "packed")).to(dev)
+    q = torch.randn(B, S, H, D, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, KV, D, device=dev).bfloat16() for _ in range(2))
+    runs = [att.flash_fwd(q, k, v, segment_ids=seg, causal=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    log(f"K1 determinism (B={B} S={S} packed, two launches): o {same[0]}  lse {same[1]} bitwise equal")
+    if not all(same):
+        raise AssertionError("K1 is not deterministic: two launches on the same inputs differ")
+    del q, k, v, runs
     # Timing at the engine's prefill shape: one group of 8 prompts of 512
     # tokens in the 512 bucket (no padding, so one segment per row).
     B, S = 8, PROMPT_LEN
@@ -217,52 +291,88 @@ def phase_k1(dev, rng):
     v = torch.randn(B, S, KV, D, device=dev).bfloat16()
     seg_np = np.zeros((B, S), np.int32)
     seg = torch.from_numpy(seg_np).to(dev)
-    ms = time_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
+    ms = device_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
+    eager_ms = time_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
     plain_ms = time_ms(lambda: att.mha_reference(q, k, v, causal=True, segment_ids=seg))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     mask = (causal[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S + 4 * B * S
     bound_ms, bound_by = bound(*k1_cost(seg_np, nbytes))
-    log(f"K1 at engine shape B={B} S={S}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    flops = k1_cost(seg_np, nbytes)[0]
+    log(f"K1 at engine shape B={B} S={S}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{ms / bound_ms:.2f}x bound; eager {eager_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+        f"sdpa {library_ms:.4f} ms ({ms / library_ms:.2f}x)  bound {bound_ms:.4f} ms ({bound_by})")
     del q, k, v, qt, kt, vt
     # The training shape: bench.py's batch, one causal sequence per row.
     B, S = TRAIN_B, TRAIN_S
     q = torch.randn(B, S, H, D, device=dev).bfloat16()
     k = torch.randn(B, S, KV, D, device=dev).bfloat16()
     v = torch.randn(B, S, KV, D, device=dev).bfloat16()
-    t_ms = time_ms(lambda: att.flash_fwd(q, k, v, causal=True), iters=10)
+    t_ms = device_ms(lambda: att.flash_fwd(q, k, v, causal=True), iters=10)
     t_plain = time_ms(lambda: att.mha_reference(q, k, v, causal=True), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    t_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    t_lib = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
-    t_bound, t_by = bound(4 * D * H * causal_pairs(np.zeros((B, S), np.int32)), nbytes)
-    log(f"K1 at training shape B={B} S={S}: kernel {t_ms:.4f} ms  plain {t_plain:.4f} ms  "
-        f"sdpa {t_lib:.4f} ms  bound {t_bound:.4f} ms ({t_by})")
+    t_flops = 4 * D * H * causal_pairs(np.zeros((B, S), np.int32))
+    t_bound, t_by = bound(t_flops, nbytes)
+    log(f"K1 at training shape B={B} S={S}: kernel {t_ms:.4f} ms ({t_flops / t_ms / 1e9:.1f} TFLOP/s, "
+        f"{t_ms / t_bound:.2f}x bound)  plain {t_plain:.4f} ms  sdpa {t_lib:.4f} ms ({t_ms / t_lib:.2f}x)  "
+        f"bound {t_bound:.4f} ms ({t_by})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(max_abs_err=worst, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 train_shape=dict(ms=t_ms, plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, bound_by=t_by))
 
 
-def _paged_case(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ):
+def _paged_case(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV):
     import torch
 
     B = len(lengths)
     P_total = B * ppseq + 1
-    kp = torch.randn(KV, P_total, ps, D, device=dev).bfloat16()
-    vp = torch.randn(KV, P_total, ps, D, device=dev).bfloat16()
-    q = torch.randn(B, H, D, device=dev).bfloat16()
+    kp = torch.randn(kv, P_total, ps, D, device=dev).bfloat16()
+    vp = torch.randn(kv, P_total, ps, D, device=dev).bfloat16()
+    q = torch.randn(B, h, D, device=dev).bfloat16()
     table = np.zeros((B, ppseq), np.int32)
     for b in range(B):
         n = math.ceil(lengths[b] / ps)
         table[b, :n] = rng.permutation(np.arange(1, P_total))[:n]
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, kp, vp, lens, torch.from_numpy(table).to(dev)
+
+
+def _check_k4(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV, case=None):
+    """K4 against paged_attention_reference in fp32 on the same bf16 inputs.
+    Returns (max |o - o_ref|, o, inputs)."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    case = case or _paged_case(dev, rng, lengths, ps, ppseq, h, kv)
+    o = pa.paged_decode(*case)
+    torch.cuda.synchronize()
+    q, kp, vp, lens, table = case
+    o_ref = pa.paged_attention_reference(q.float(), kp.float(), vp.float(), lens, table)
+    err = (o.float() - o_ref).abs().max().item()
+    zero_rows = all(not o[b].any().item() for b, n in enumerate(lengths) if n == 0)
+    log(f"K4 B={len(lengths)} ps={ps} pages/seq={ppseq} H={h} KV={kv} lengths {min(lengths)}..{max(lengths)}: "
+        f"max|o-ref| {err:.3e}  length-0 rows zero {zero_rows}")
+    if not (err <= 2e-2 and zero_rows and bool(torch.isfinite(o).all())):
+        raise AssertionError(f"K4 disagrees with its plain version at B={len(lengths)} ps={ps} H={h} KV={kv}")
+    return err, o, case
+
+
+def _k4_lengths(rng, B, ps, ppseq):
+    """B 1: one sequence over most of its table; else 0, 1, two pages
+    exactly, the full table and random lengths."""
+    if B == 1:
+        return [ppseq * ps - 3]
+    lengths = rng.integers(1, ppseq * ps + 1, B)
+    lengths[:4] = [0, 1, 2 * ps, ppseq * ps]
+    return [int(n) for n in lengths]
 
 
 def phase_k4(dev, rng):
@@ -273,15 +383,24 @@ def phase_k4(dev, rng):
     max_len = PAGE * K4_PPSEQ
     lengths = rng.integers(1, max_len + 1, K4_B)
     lengths[[0, 1, K4_B - 1]] = [0, 1, max_len]
-    q, kp, vp, lens, table = _paged_case(dev, rng, lengths)
-    o = pa.paged_decode(q, kp, vp, lens, table)
+    err, _, _ = _check_k4(dev, rng, [int(n) for n in lengths])
+    for ps in K4_PAGES:
+        for group in K4_GROUPS:
+            for B in (1, K4_B):
+                ppseq = max_len // ps if B == 1 else 8
+                e, _, _ = _check_k4(dev, rng, _k4_lengths(rng, B, ps, ppseq), ps, ppseq, KV * group, KV)
+                err = max(err, e)
+    # Determinism, and counters back at 0: two launches on the same inputs
+    # give the same bits, with a call at another batch size between them.
+    lengths = _k4_lengths(rng, K4_B, PAGE, K4_PPSEQ)
+    _, o1, case = _check_k4(dev, rng, lengths)
+    _check_k4(dev, rng, _k4_lengths(rng, 5, PAGE, K4_PPSEQ))
+    o2 = pa.paged_decode(*case)
     torch.cuda.synchronize()
-    o_ref = pa.paged_attention_reference(q.float(), kp.float(), vp.float(), lens, table)
-    err = (o.float() - o_ref).abs().max().item()
-    zero_row = not o[0].any().item()
-    log(f"K4 B={K4_B} ragged lengths 0..{max_len}: max|o-ref| {err:.3e}  length-0 row is zero {zero_row}")
-    if not (err <= 2e-2 and zero_row and bool(torch.isfinite(o).all())):
-        raise AssertionError("K4 disagrees with its plain version")
+    same, reset = torch.equal(o1, o2), not pa._COUNTERS[o1.device].any().item()
+    log(f"K4 determinism (B={K4_B}, two launches around a B=5 call): bitwise equal {same}  counters at 0 {reset}")
+    if not (same and reset):
+        raise AssertionError("K4 is not deterministic or left a ticket counter set")
     # Timing at the engine's decode shape; 8 pool copies rotate so each launch
     # reads its pages from device memory, as the engine's do (12 layers apart).
     lengths = rng.integers(PROMPT_LEN + 1, PROMPT_LEN + MAX_TOKENS + 1, N_REQ)
@@ -291,15 +410,17 @@ def phase_k4(dev, rng):
     def run(fn):
         return lambda: fn(*cases[next(it) % len(cases)])
 
-    ms = time_ms(run(pa.paged_decode), iters=40)
+    ms = device_ms(run(pa.paged_decode), iters=40)
+    eager_ms = time_ms(run(pa.paged_decode), iters=40)
     plain_ms = time_ms(run(pa.paged_attention_reference), iters=40)
     tokens = int(lengths.sum())
     pages = int(sum(math.ceil(n / PAGE) for n in lengths))
     nbytes = 2 * tokens * KV * D * 2 + 2 * N_REQ * H * D * 2 + 4 * N_REQ + 4 * pages
     bound_ms, bound_by = bound(4 * H * D * tokens, nbytes)
-    log(f"K4 at engine shape B={N_REQ} lengths {lengths.min()}..{lengths.max()}: kernel {ms:.4f} ms  "
+    log(f"K4 at engine shape B={N_REQ} lengths {lengths.min()}..{lengths.max()}: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.1f} GB/s, {ms / bound_ms:.2f}x bound; eager {eager_ms:.4f} ms)  "
         f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -378,8 +499,8 @@ def phase_k23(dev, rng):
     B, S = TRAIN_B, TRAIN_S
     q, k, v, o, lse, do = _bwd_case(dev, B, S)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
-    dq_ms = time_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), iters=10)
-    dkv_ms = time_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta), iters=10)
+    dq_ms = device_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), iters=10)
+    dkv_ms = device_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta), iters=10)
     plain_ms = time_ms(lambda: att.flash_bwd_reference(q, k, v, o, lse, do), iters=3, warmup=1)
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
@@ -445,9 +566,9 @@ def phase_splash(dev, rng, k1_train, k3, k2):
     qs, k, v, do = inputs(B, S)
     o, lse = att.flash_fwd(qs, k, v, causal=True, scale=1.0)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
-    t_fwd = time_ms(lambda: att.flash_fwd(qs, k, v, causal=True, scale=1.0), iters=10)
-    t_dq = time_ms(lambda: att.flash_bwd_dq(qs, k, v, do, lse, delta, scale=1.0), iters=10)
-    t_dkv = time_ms(lambda: att.flash_bwd_dkv(qs, k, v, do, lse, delta, scale=1.0), iters=10)
+    t_fwd = device_ms(lambda: att.flash_fwd(qs, k, v, causal=True, scale=1.0), iters=10)
+    t_dq = device_ms(lambda: att.flash_bwd_dq(qs, k, v, do, lse, delta, scale=1.0), iters=10)
+    t_dkv = device_ms(lambda: att.flash_bwd_dkv(qs, k, v, do, lse, delta, scale=1.0), iters=10)
     plain_ms = time_ms(lambda: (att.mha_reference(qs, k, v, causal=True, scale=1.0),
                                 att.flash_bwd_reference(qs, k, v, o, lse, do, scale=1.0)), iters=3, warmup=1)
     torch.cuda.empty_cache()

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, which ``ctypes`` loads; no
 PyTorch header is included, so a build takes seconds. The library lands in
 ``_build_out/`` beside this file (git-ignored), named by a digest of its
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of every shared header (``csrc/*.cuh``), so an edited source or
+header is rebuilt and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
 them together.
 """
@@ -42,8 +43,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return OUT / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return OUT / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def log_path(name: str) -> Path:
