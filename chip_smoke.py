@@ -58,6 +58,29 @@ Phases, in order; any failure exits non-zero:
      to ~6, ulp 0.03, after 12 layers), and every request's first token must
      be within that tolerance of the plain top-1 logit. Then a short
      dense-layout run (4 requests), which runs K1 and not K4.
+  6b. the prefix cache and chunked prefill on phase 6's model (full width
+     and depth, page 128, 32 slots, prefix_cache on, chunked_prefill 512,
+     warmup first). (a) A shared system prompt: one seed request of a
+     1024-token system prompt plus a 96-token tail (a chunked miss: chunks
+     of 512, 512 and 96 over three steps), then 32 requests of the same
+     system prompt plus their own 64-192-token tails at once (partial hits:
+     each prefills only its tail over the cached pages), then 8 of those 32
+     prompts again (exact hits: no prefill). (b) 8 requests of 512 tokens
+     start decoding, then 2 prompts of 1536 tokens arrive (three chunks
+     each). Gates: every request finishes with its 64 tokens inside the
+     vocabulary; prefix_cache_stats after (a) are 1 miss, 32 partial hits, 8
+     hits; pages are conserved (free + cached + held = the pool); in (b) the
+     short requests emit tokens in at least 2 steps that begin with a long
+     prompt mid-prefill; K1 is launched 0 times in (a) and exactly 12 times
+     per prefill group in (b), K4 in both. The tail prefill's logits (each
+     partial hit, each chunked prompt's last chunk, over the cached pages)
+     against the plain forward over the whole prompt: max |diff| <= 0.25,
+     mean <= 0.02; every first token, exact hits included, within 0.25 of
+     the plain top-1 logit (token equality with a cold run is not a gate:
+     cold prefill runs K1 in bf16, the tail plain einsum, so near-ties may
+     differ); one page copy bitwise equal in every layer. TTFT of the seed,
+     the partial and the exact hits and decode tokens/s during the steps
+     that begin mid-prefill are printed, not gated.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -78,12 +101,15 @@ Phases, in order; any failure exits non-zero:
      12 recompute), K3 12 and K2 12. Prints step time, tokens/s, MFU
      (bench.py's formula, 6 N T + 12 L d S T, against 989 TFLOP/s) and peak
      memory.
-  8. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  8. JSON lines {"engine": ...}, {"engine_prefix": ...}, {"train": ...},
+     {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 ``--profile DIR`` also traces the paged engine with torch.profiler (the
-admission step with its prefills, then two decode steps) and one training
-step, prints each window's device time by kind of kernel, and writes the
-kernel tables and traces to DIR.
+admission step with its prefills, then two decode steps), the admission
+step of 32 more partial hits in phase 6b (with the device time under the
+tail attention's einsums and softmax, the GEMMs and the page copies) and one
+training step, prints each window's device time by kind of kernel, and
+writes the kernel tables and traces to DIR.
 """
 from __future__ import annotations
 
@@ -112,6 +138,16 @@ K4_PAGES, K4_GROUPS = (16, 64, 128), (1, 2, 4, 8)  # K4's sweep: page sizes, q h
 K23_CHECK = ((1, 512), (1, 1000), (1, 2048), (4, 512), (4, 1000), (4, 2048))  # (B, S)
 # (B, S, H, KV, segments): MQA, three packed segments per row, one tile, under one tile.
 K23_EXTRA = ((2, 1000, 8, 1, "pad"), (2, 2048, H, KV, "packed"), (2, 64, H, KV, "pad"), (3, 33, 8, 2, "pad"))
+# Phase 6b: a shared system prompt (a seed request with a 96-token tail, then
+# partial hits with tails of 64-192 tokens, then exact hits), chunks of 512;
+# then short prompts decoding while long prompts prefill chunk by chunk.
+SYS_LEN, SEED_TAIL, HIT_TAIL, N_HIT, N_EXACT, CHUNK = 1024, 96, (64, 192), 32, 8, 512
+N_SHORT, N_LONG, LONG_LEN = 8, 2, 1536
+# Ops whose device time the profile of 6b's admission step reports (the
+# tail attention's einsums, softmax and mask; the projections' GEMMs; the
+# page copies, pool writes and context gathers).
+PREFIX_OPS = ("aten::einsum", "aten::_softmax", "aten::masked_fill", "aten::mm", "aten::index_select",
+              "aten::index_copy_", "aten::cat")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 2048, 10  # bench.py's batch and sequence
 PARITY_LAYERS, PARITY_B = 2, 2
 
@@ -594,15 +630,28 @@ def phase_splash(dev, rng, k1_train, k3, k2):
                 library_covers="scaled_dot_product_attention forward + backward (scale 1.0) in one call each")
 
 
-def drive(eng, prompts, max_tokens):
-    """Queues every prompt, steps until all finish. Returns per-request
-    results and the wall times of the run."""
+def _finished(done, n, vocab, max_tokens=None):
+    """n requests finished at their token budget (default MAX_TOKENS), every
+    token inside the vocabulary."""
+    max_tokens = max_tokens or MAX_TOKENS
+    return len(done) == n and all(len(ev["tokens"]) == max_tokens and ev["finish_reason"] == "length"
+                                  and all(0 <= t < vocab for t in ev["tokens"]) for ev in done.values())
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, math.ceil(q * len(xs)) - 1)]
+
+
+def drive(eng, prompts, max_tokens, prefix="r"):
+    """Queues every prompt (ids prefix0, prefix1, ...), steps until all
+    finish. Returns per-request results and the wall times of the run."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
-        eng.add_request(f"r{i}", p, max_tokens)
+        eng.add_request(f"{prefix}{i}", p, max_tokens)
     done, ttft = {}, {}
     while eng.has_work():
         for rid, ev in eng.step().items():
@@ -664,16 +713,13 @@ def phase_engine(dev, rng, profile_dir=None):
     done, ttft, t0, t1 = drive(eng, prompts, MAX_TOKENS)
     launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
     n_tok = sum(len(ev["tokens"]) for ev in done.values())
-    ok = (len(done) == N_REQ and all(len(ev["tokens"]) == MAX_TOKENS and ev["finish_reason"] == "length"
-                                     and all(0 <= t < cfg.vocab_size for t in ev["tokens"])
-                                     for ev in done.values()))
     tt = sorted(ttft.values())
     # Every request arrives at t0 and the last first token lands at t0 + max
     # TTFT; from then on the engine only decodes.
     decode_s = t1 - t0 - max(tt)
     stats = dict(
         ttft_p50_ms=1e3 * statistics.median(tt),
-        ttft_p99_ms=1e3 * tt[min(len(tt) - 1, math.ceil(0.99 * len(tt)) - 1)],
+        ttft_p99_ms=1e3 * _pct(tt, 0.99),
         decode_tok_s=(n_tok - N_REQ) / decode_s,
         tok_s=n_tok / (t1 - t0),
         wall_s=t1 - t0,
@@ -684,7 +730,7 @@ def phase_engine(dev, rng, profile_dir=None):
         f"decode {stats['decode_tok_s']:.1f} tok/s, overall {stats['tok_s']:.1f} tok/s, "
         f"peak mem {stats['peak_mem_gb']:.2f} GB")
     log(f"  launches on the main path: K1 {launches['flash_fwd']}  K4 {launches['paged_decode']}")
-    if not ok:
+    if not _finished(done, N_REQ, cfg.vocab_size):
         raise AssertionError("paged engine run did not finish every request with max_tokens valid tokens")
     if not (launches["flash_fwd"] > 0 and launches["paged_decode"] > 0):
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
@@ -702,11 +748,173 @@ def phase_engine(dev, rng, profile_dir=None):
     d_launch = (attention.LAUNCHES, paged_attention.LAUNCHES)
     log(f"engine dense: 4 requests x 16 tokens, wall {d1 - d0:.3f} s, "
         f"TTFT p50 {1e3 * statistics.median(d_ttft.values()):.2f} ms, launches K1 {d_launch[0]} K4 {d_launch[1]}")
-    if not (len(d_done) == 4 and all(len(ev["tokens"]) == 16 for ev in d_done.values())):
+    if not _finished(d_done, 4, cfg.vocab_size, max_tokens=16):
         raise AssertionError("dense engine run did not finish")
     if d_launch[0] == 0 or d_launch[1] != 0:
         raise AssertionError(f"dense run launches {d_launch}: expected K1 > 0 and K4 == 0")
     check_first_tokens(cfg, dense, prompts[:4], d_done, dev)
+    return stats, launches
+
+
+def _cached_tail_logits(eng, prompt, start):
+    """The engine's tail prefill of prompt[start:] over the cached pages of
+    prompt[:start], as admission runs it; the tail's own K/V go to the dead
+    page."""
+    j = start // eng.ec.page_size
+    row = np.zeros(eng.ppseq, np.int32)
+    row[:j] = eng._prefix_cache[eng._prefix_digests(prompt[:start])[-1][1]]["pages"][:j]
+    padded, ctx, tail_pages = eng._tail_args(row, prompt, start, len(prompt) - start)
+    return eng._tail_prefill_logits(padded, start, len(prompt), ctx, tail_pages)
+
+
+def phase_prefix(dev, rng, profile_dir=None):
+    """Phase 6b: the prefix cache and chunked prefill on phase 6's model."""
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models import TransformerConfig, forward
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    cfg = TransformerConfig(**MODEL)
+    V = cfg.vocab_size
+    eng = LLMEngine(cfg, engine_config=EngineConfig(
+        max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0,
+        prefix_cache=True, chunked_prefill=CHUNK))
+    eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    # (a) shared system prompt: a chunked cold seed, partial hits, exact hits.
+    sys_prompt = rng.integers(0, V, SYS_LEN).astype(np.int32)
+
+    def with_tail(n):
+        return np.concatenate([sys_prompt, rng.integers(0, V, n).astype(np.int32)])
+
+    seed = with_tail(SEED_TAIL)
+    hits = [with_tail(int(rng.integers(HIT_TAIL[0], HIT_TAIL[1] + 1))) for _ in range(N_HIT)]
+    attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    d_seed, tt_seed, _, _ = drive(eng, [seed], MAX_TOKENS, "seed")
+    d_hit, tt_hit, _, _ = drive(eng, hits, MAX_TOKENS, "hit")
+    d_exact, tt_exact, _, _ = drive(eng, hits[:N_EXACT], MAX_TOKENS, "exact")
+    launch_a = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+    stats_a = eng.prefix_cache_stats
+    hit_ms, exact_ms = [1e3 * t for t in tt_hit.values()], [1e3 * t for t in tt_exact.values()]
+    log(f"engine prefix (a): seed {SYS_LEN}+{SEED_TAIL} tokens (chunks of {CHUNK}) TTFT "
+        f"{1e3 * tt_seed['seed0']:.2f} ms; {N_HIT} partial hits (tails {HIT_TAIL[0]}-{HIT_TAIL[1]}) TTFT "
+        f"p50 {statistics.median(hit_ms):.2f} ms p99 {_pct(hit_ms, 0.99):.2f} ms; {N_EXACT} exact hits TTFT "
+        f"p50 {statistics.median(exact_ms):.2f} ms p99 {_pct(exact_ms, 0.99):.2f} ms")
+    log(f"  prefix_cache_stats {stats_a}  launches K1 {launch_a['flash_fwd']}  K4 {launch_a['paged_decode']}")
+    if not (_finished(d_seed, 1, V) and _finished(d_hit, N_HIT, V) and _finished(d_exact, N_EXACT, V)):
+        raise AssertionError("prefix run (a) did not finish every request with max_tokens valid tokens")
+    want = {"misses": 1, "partial_hits": N_HIT, "hits": N_EXACT}
+    if {k: stats_a[k] for k in want} != want:
+        raise AssertionError(f"prefix_cache_stats {stats_a} after (a), expected {want}")
+    if launch_a["flash_fwd"] != 0 or launch_a["paged_decode"] == 0:
+        raise AssertionError(f"launches in (a) {launch_a}: expected K1 0 (tail prefills only) and K4 > 0")
+
+    # (b) short prompts decoding while long prompts prefill chunk by chunk.
+    shorts = [rng.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(N_SHORT)]
+    longs = [rng.integers(0, V, LONG_LEN).astype(np.int32) for _ in range(N_LONG)]
+    groups = []  # prefill groups (each one K1 launch per layer)
+    prefill = eng._prefill_batch_impl
+
+    def counted(tokens, *a):
+        groups.append(tokens.shape)
+        return prefill(tokens, *a)
+
+    eng._prefill_batch_impl = counted
+    attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    for i, p in enumerate(shorts):
+        eng.add_request(f"short{i}", p, MAX_TOKENS)
+    done_b, steps, mid_steps, interleaved, mid_tokens, mid_s = {}, 0, 0, 0, 0, 0.0
+    while eng.has_work():
+        mid = bool(eng._prefilling)
+        s0 = time.perf_counter()
+        events = eng.step()
+        dt = time.perf_counter() - s0
+        steps += 1
+        n_short = sum(len(ev.get("new_tokens", ())) for r, ev in events.items() if r.startswith("short"))
+        if mid:
+            mid_steps, mid_s, mid_tokens = mid_steps + 1, mid_s + dt, mid_tokens + n_short
+            interleaved += n_short > 0
+        done_b.update((r, ev) for r, ev in events.items() if ev.get("finished"))
+        if steps == 1:  # the short requests decode now; the long prompts arrive
+            for i, p in enumerate(longs):
+                eng.add_request(f"long{i}", p, MAX_TOKENS)
+    del eng._prefill_batch_impl  # back to the class's method
+    launch_b = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+    decode_mid = mid_tokens / mid_s if mid_s else 0.0
+    log(f"engine prefix (b): {N_SHORT} x {PROMPT_LEN}-token requests decoding, {N_LONG} x {LONG_LEN}-token "
+        f"prompts chunked: {mid_steps} steps began mid-prefill, {interleaved} of them emitted short tokens; "
+        f"decode {decode_mid:.1f} tok/s during those steps; prefill groups {len(groups)}; launches K1 "
+        f"{launch_b['flash_fwd']}  K4 {launch_b['paged_decode']}")
+    if not _finished(done_b, N_SHORT + N_LONG, V):
+        raise AssertionError("prefix run (b) did not finish every request with max_tokens valid tokens")
+    if interleaved < 2:
+        raise AssertionError(f"decode emitted tokens in only {interleaved} steps that began mid-prefill")
+    if launch_b["flash_fwd"] != cfg.n_layers * len(groups) or launch_b["paged_decode"] == 0:
+        raise AssertionError(f"launches in (b) {launch_b}: expected K1 {cfg.n_layers} x {len(groups)} "
+                             f"prefill groups and K4 > 0")
+    wall_s = time.perf_counter() - t_phase
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # Logits against the plain forward over the whole prompt: the tail
+    # prefill of every partial hit and of each chunked prompt's last chunk,
+    # and every request's first token (exact hits: out of the decode block).
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    with torch.no_grad():
+        def plain(p):
+            return forward(eng.params, torch.tensor(p[None], dtype=torch.long, device=dev), plain_cfg)[:, -1].float()
+
+        last_chunk = [(p, (len(p) - 1) // CHUNK * CHUNK) for p in [seed] + longs]
+        tails = [(p, SYS_LEN) for p in hits] + last_chunk
+        diff = torch.cat([(_cached_tail_logits(eng, p, s) - plain(p)).abs() for p, s in tails])
+        prompts = {"seed0": seed, **{f"hit{i}": p for i, p in enumerate(hits)},
+                   **{f"exact{i}": hits[i] for i in range(N_EXACT)},
+                   **{f"short{i}": p for i, p in enumerate(shorts)}, **{f"long{i}": p for i, p in enumerate(longs)}}
+        firsts = {**d_seed, **d_hit, **d_exact, **done_b}
+        gaps = []
+        for rid, p in prompts.items():
+            lg = plain(p)[0]
+            gaps.append((lg.max() - lg[firsts[rid]["tokens"][0]]).item())
+    log(f"  tail prefill logits vs plain forward ({len(tails)} prompts: {N_HIT} partial hits, {len(last_chunk)} "
+        f"last chunks): max|diff| {diff.max().item():.4f}  mean|diff| {diff.mean().item():.5f}; first tokens of "
+        f"{len(gaps)} requests: worst top-1 gap {max(gaps):.4f}")
+    if not (bool(torch.isfinite(diff).all()) and diff.max() <= 0.25 and diff.mean() <= 0.02 and max(gaps) <= 0.25):
+        raise AssertionError("the prefix/chunked engine's logits disagree with the plain forward")
+
+    # The page copy moves bytes unchanged, in every layer.
+    src, dst = sorted(eng._page_refs)[:8], list(eng.free_pages)[:8]
+    eng._copy_pages(src, dst)
+    same = all(torch.equal(pool[:, :, eng._pool_rows(dst)], pool[:, :, eng._pool_rows(src)])
+               for pool in (eng.k_pages, eng.v_pages))
+    held = sum(len(sl.pages) for sl in eng.slots if sl is not None)
+    conserved = len(eng.free_pages) + len(eng._page_refs) + held == eng.ec.total_pages - 1
+    log(f"  page copy of {len(src)} pages bitwise equal {same}; pages conserved {conserved} "
+        f"(free {len(eng.free_pages)}, cached {len(eng._page_refs)}, pool {eng.ec.total_pages - 1}); "
+        f"phase wall {wall_s:.3f} s, peak mem {peak_gb:.2f} GB")
+    if not (same and conserved):
+        raise AssertionError("page copy not bitwise or pages not conserved")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        for i in range(N_HIT):
+            eng.add_request(f"p{i}", with_tail(int(rng.integers(HIT_TAIL[0], HIT_TAIL[1] + 1))), MAX_TOKENS)
+        _profile_window("prefix_admit_step", eng.step, profile_dir, ops=PREFIX_OPS)
+        while eng.has_work():
+            eng.step()
+    del eng
+    torch.cuda.empty_cache()
+    stats = dict(
+        ttft_seed_ms=1e3 * tt_seed["seed0"],
+        ttft_partial_hit_p50_ms=statistics.median(hit_ms), ttft_partial_hit_p99_ms=_pct(hit_ms, 0.99),
+        ttft_exact_hit_p50_ms=statistics.median(exact_ms), ttft_exact_hit_p99_ms=_pct(exact_ms, 0.99),
+        decode_tok_s_mid_prefill=decode_mid, mid_prefill_steps=mid_steps, interleaved_steps=interleaved,
+        prefix_cache_stats=stats_a, tail_logits_max_diff=diff.max().item(),
+        tail_logits_mean_diff=diff.mean().item(), first_token_worst_gap=max(gaps),
+        wall_s=wall_s, peak_mem_gb=peak_gb, launches_a=launch_a, launches_b=launch_b, prefill_groups_b=len(groups),
+    )
+    launches = {k: launch_a[k] + launch_b[k] for k in launch_a}
     return stats, launches
 
 
@@ -852,10 +1060,10 @@ def _by_kind(device_events):
     return sorted(((k, us, n) for k, (us, n) in acc.items()), key=lambda r: -r[1])
 
 
-def _profile_window(name, fn, out_dir):
+def _profile_window(name, fn, out_dir, ops=()):
     """torch.profiler over fn(); writes the kernel table and the trace to
     out_dir and prints the wall time, device kernel time, device time by
-    kind and top rows."""
+    kind, the device time under each of ``ops`` (ops may nest) and top rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -879,6 +1087,10 @@ def _profile_window(name, fn, out_dir):
         f"(busy share {dev_us / 1e6 / wall:.3f}), {len(device_events)} device events")
     for kind, us, n in _by_kind(device_events):
         log(f"  {kind}: {us / 1e3:.2f} ms ({100 * us / max(dev_us, 1e-9):.1f} %, {n} events)")
+    total = "device_time_total" if ka and hasattr(ka[0], "device_time_total") else "cuda_time_total"
+    for row in (r for r in ka if r.key in ops):
+        us = getattr(row, total)
+        log(f"  under {row.key}: {us / 1e3:.2f} ms ({100 * us / max(dev_us, 1e-9):.1f} %, {row.count} calls)")
     log(ka.table(sort_by=key, row_limit=12))
 
 
@@ -920,24 +1132,30 @@ def main(argv=None):
     k3, k2 = phase_k23(dev, rng)
     splash = phase_splash(dev, rng, k1["train_shape"], k3, k2)
     stats, launches = phase_engine(dev, rng, args.profile)
+    prefix, p_launches = phase_prefix(dev, rng, args.profile)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [
         dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="ray_tpu/ops/attention.py:92",
-             launches=launches["flash_fwd"] + t_launches["flash_fwd"],
-             launches_by_path={"serve": launches["flash_fwd"], "train": t_launches["flash_fwd"]}, **k1),
+             launches=launches["flash_fwd"] + p_launches["flash_fwd"] + t_launches["flash_fwd"],
+             launches_by_path={"serve": launches["flash_fwd"], "serve_prefix": p_launches["flash_fwd"],
+                               "train": t_launches["flash_fwd"]}, **k1),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src, replaces="ray_tpu/ops/attention.py:277",
              launches=t_launches["flash_bwd_dq"], **k3),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src, replaces="ray_tpu/ops/attention.py:210",
              launches=t_launches["flash_bwd_dkv"], **k2),
         dict(name="paged_decode", route="cuda", source="ray_tpu_torch/ops/csrc/paged_decode.cu",
-             replaces="ray_tpu/ops/paged_attention.py:67", launches=launches["paged_decode"], **k4),
+             replaces="ray_tpu/ops/paged_attention.py:67",
+             launches=launches["paged_decode"] + p_launches["paged_decode"],
+             launches_by_path={"serve": launches["paged_decode"], "serve_prefix": p_launches["paged_decode"]},
+             **k4),
         dict(name="splash", route="onto K1-K3", source="ray_tpu_torch/ops/splash.py",
              replaces="ray_tpu/ops/splash.py:33", launches=sum(s_launches.values()),
              launches_by_kernel=s_launches, **splash),
     ]
     log(json.dumps({"engine": stats}))
+    log(json.dumps({"engine_prefix": prefix}))
     log(json.dumps({"train": train}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -29,21 +29,29 @@ PyTorch's eager mode:
   kept fp32 parameters and cast each one at every matmul, which gives the
   same values.
 
+- The prefix KV cache and chunked prefill keep the JAX engine's host logic
+  (chained page-aligned digests, refcounted pages, LRU eviction that spares
+  the entry being hit, one chunk per step with the slot's device rows
+  masked until its last chunk). The tail prefill's attention is plain
+  einsum over the context pages gathered from the pool plus the causal
+  tail, as in the JAX engine (no kernel there either); the page copy is an
+  ``index_select`` then an ``index_copy_`` across all layers.
+
 Page-0 convention (as in the JAX engine): page 0 is never allocated; dead
 page-table entries point at it, and it absorbs writes from retired or
 empty slots, whose lengths are zeroed so nothing ever reads what they wrote.
 Device indices that the JAX code clamped implicitly (an empty slot's length
 keeps advancing inside a block) are clamped explicitly here.
 
-Not in this slice (each raises ``NotImplementedError``): the prefix KV cache,
-chunked prefill and tensor-parallel serving.
+Not in this slice (raises ``NotImplementedError``): tensor-parallel serving.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Optional
 
 import numpy as np
@@ -93,9 +101,22 @@ class EngineConfig:
     # Candidate cap for truncated (top-k/top-p) sampling rows; see
     # sampling.TOPK_CAP for the nucleus-width caveat.
     sample_topk_cap: int = 128
-    # Not in this slice of the port (raise NotImplementedError when set):
+    # Not in this slice of the port (raises NotImplementedError when > 1).
     tensor_parallel: int = 1
+    # Chunked prefill (paged layout only): a prompt whose un-cached span
+    # exceeds this many tokens prefills in page-aligned chunks of this size,
+    # one chunk per engine step, interleaved with the decode blocks, so a long
+    # prompt stalls the decoding slots by one chunk per step, not by its whole
+    # prefill. Must be a multiple of page_size. 0 = off.
     chunked_prefill: int = 0
+    # Prefix KV cache (paged layout only). A retired request's prompt pages
+    # stay in an LRU cache under chained digests, one entry per page-aligned
+    # prefix plus the full prompt, the pages refcounted across entries.
+    # Exact hit: copy the cached pages and start decoding at position P-1
+    # (the decode block re-derives that position's KV and emits the first
+    # token; no prefill). Partial hit (a prompt extending a cached
+    # page-aligned prefix): copy the matched pages, then prefill only the
+    # tail, attending to the cached pages.
     prefix_cache: bool = False
 
 
@@ -107,9 +128,14 @@ class _Slot:
     emitted: list = dataclasses.field(default_factory=list)
     n_generated: int = 0  # dispatched count (values may still be on device)
     arrived_at: float = 0.0
+    prefill_pos: int = 0  # tokens already prefilled (chunked-prefill progress)
     first_token_at: Optional[float] = None
     stop_ids: tuple = ()  # per-request stop tokens (on top of engine eos)
     ignore_eos: bool = False
+    # Prompt tokens, kept only when this prompt's pages should enter the
+    # prefix cache at retire (miss or partial hit; an exact hit adds nothing).
+    prompt_tokens: Optional[np.ndarray] = None
+    prompt_len: int = 0
 
 
 def _prefill_layer(x, lp, cfg: TransformerConfig, positions, seg):
@@ -173,12 +199,6 @@ class LLMEngine:
         if self.ec.tensor_parallel > 1:
             raise NotImplementedError(
                 "tensor_parallel > 1 is not ported yet (tensor-parallel serving is a later slice)")
-        if self.ec.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache is not ported yet (prefix cache + chunked prefill are the next serving slice)")
-        if self.ec.chunked_prefill:
-            raise NotImplementedError(
-                "chunked_prefill is not ported yet (prefix cache + chunked prefill are the next serving slice)")
         if self.ec.max_seq <= 0:
             self.ec = dataclasses.replace(self.ec, max_seq=cfg.max_seq_len)
         S = self.ec.max_seq
@@ -195,6 +215,16 @@ class LLMEngine:
         ps = self.ec.page_size if self.paged else S
         if self.paged and S % ps:
             raise ValueError(f"max_seq {S} must be a multiple of page_size {ps}")
+        if self.ec.prefix_cache and not self.paged:
+            raise ValueError("prefix_cache requires kv_layout='paged'")
+        if self.ec.chunked_prefill:
+            if not self.paged:
+                raise ValueError("chunked_prefill requires kv_layout='paged'")
+            if self.ec.chunked_prefill % self.ec.page_size:
+                raise ValueError(
+                    f"chunked_prefill {self.ec.chunked_prefill} must be a "
+                    f"multiple of page_size {self.ec.page_size}"
+                )
         if self.paged and self.ec.total_pages <= 0:
             self.ec = dataclasses.replace(self.ec, total_pages=self.ec.max_slots * (S // ps) + 1)
         if params is None:
@@ -241,9 +271,29 @@ class LLMEngine:
         self.d_top_ks = self._tensor(self.samp_top_ks)
         self.waiting: deque = deque()
         self._gen = torch.Generator(device=dev).manual_seed(self.ec.seed + 1)
-        # Slots mid chunked-prefill (slot -> prompt). Always empty until
-        # chunked prefill is ported; the masking below already honours it.
+        # Prefix KV cache: sha1(tokens[:n]) -> {"pages": (...), "prompt_len":
+        # n} for every page-aligned prefix n of a retired prompt plus its
+        # full length, LRU-ordered. Pages are shared across the chain entries
+        # of one prompt and refcounted (_page_refs); a page returns to the
+        # free list only when its last referencing entry is evicted.
+        self._prefix_cache: OrderedDict[bytes, dict] = OrderedDict()
+        self._page_refs: dict[int, int] = {}
+        self.prefix_hits = 0
+        self.prefix_partial_hits = 0
+        self.prefix_misses = 0
+        # Slots mid chunked-prefill: slot -> full prompt tokens. Their device
+        # length / page-table rows stay zeroed until the last chunk lands (the
+        # decode block's writes for them go to dead page 0), so decode
+        # interleaves with an unfinished prefill without touching its pages.
         self._prefilling: dict[int, np.ndarray] = {}
+        # Context-page buckets of the tail prefill: powers of two up to the
+        # page-table width, so its shapes are a small fixed set (the JAX
+        # engine compiles one program per (tail bucket, context bucket)).
+        cs, c = [], 1
+        while c < self.ppseq:
+            cs.append(c)
+            c *= 2
+        self.c_buckets = tuple(sorted(set(cs) | {self.ppseq}))
         # Buckets: page-size multiples only (a prefill writes whole pages;
         # dense ps == max_seq, so buckets pass through untouched).
         bucket_quantum = self.ec.page_size if self.paged else 1
@@ -319,9 +369,7 @@ class LLMEngine:
         pos = torch.arange(P, dtype=torch.int32, device=self.device).expand(k, P)
         seg = (pos >= lens[:, None]).to(torch.int32)  # pads = their own segment
         if self.paged:
-            ps = self.ec.page_size
-            lin = (np.asarray(third, np.int64)[:, :, None] * ps + np.arange(ps)).reshape(-1)
-            lin = self._tensor(lin)  # [k * P] pool rows, page chunk by page chunk
+            lin = self._pool_rows(third)  # [k * P] pool rows, page chunk by page chunk
         else:
             slots = self._tensor(third, torch.long)
         for li, lp in enumerate(self._layers):
@@ -344,6 +392,99 @@ class LLMEngine:
         return self._sample(
             logits, self._tensor(self.samp_temps[idxs]), self._tensor(self.samp_top_ps[idxs]),
             self._tensor(self.samp_top_ks[idxs]), gen, self.samp_temps[idxs],
+        )
+
+    def _pool_rows(self, pages):
+        """Linear pool rows of whole pages, page by page: page * ps + [0, ps)."""
+        ps = self.ec.page_size
+        return self._tensor((np.asarray(pages, np.int64)[..., None] * ps + np.arange(ps)).reshape(-1))
+
+    def _copy_pages(self, src_pages, dst_pages) -> None:
+        """Copies whole pages src -> dst, K and V, across all layers at once.
+        Everything runs on one stream, so the copy is enqueued before any
+        later write to either page set and reads their bytes as they stand
+        now, even when the source pages are recycled by the next admission."""
+        src, dst = self._pool_rows(src_pages), self._pool_rows(dst_pages)
+        for pool in (self.k_pages, self.v_pages):  # [L, KV, P_total * ps, Hd]
+            pool.index_copy_(2, dst, pool.index_select(2, src))
+
+    def _tail_prefill_logits(self, tokens, start, length, ctx_pages, tail_pages):
+        """Prefill over a cached prefix: the prompt's first ``start`` tokens
+        (page-aligned) already sit in the pages ``ctx_pages``; only the tail
+        is embedded and projected here. Its K/V scatter into ``tail_pages``;
+        its queries attend to the context pages gathered from the pool plus,
+        causally, to the tail itself. Returns the fp32 logits [1, V] at
+        position ``length - 1`` (row ``length - 1 - start``).
+
+        tokens: [Tb] padded tail; ctx_pages: [C] (entries past start // ps
+        are 0, masked by position < start); tail_pages: [Tb // ps] (trailing
+        0 = dead sink, which only masked reads ever see)."""
+        cfg = self.cfg
+        ps = self.ec.page_size
+        Tb, C = len(tokens), len(ctx_pages)
+        KV, Hd = cfg.kv_heads, cfg.head_dim
+        group = cfg.n_heads // KV
+        dev = self.device
+        x = self.params["embed"][self._tensor(tokens, torch.long)][None]  # [1, Tb, D]
+        tpos = torch.arange(Tb, device=dev)
+        pos = (start + tpos)[None]  # [1, Tb] absolute positions
+        # Key validity [Tb, C*ps + Tb]: context keys below start (always at or
+        # before any query), tail keys causal within the tail and real
+        # (before length). One mask for all heads.
+        ctx_valid = (torch.arange(C * ps, device=dev) < start)[None, :].expand(Tb, C * ps)
+        tail_valid = (tpos[None, :] <= tpos[:, None]) & ((start + tpos)[None, :] < length)
+        mask = torch.cat([ctx_valid, tail_valid], dim=1)[:, None, None, :]
+        ctx_rows, tail_rows = self._pool_rows(ctx_pages), self._pool_rows(tail_pages)
+        for li, lp in enumerate(self._layers):
+            h = rms_norm(x, lp["attn_norm"])
+            q, k, v = attn_proj(h, lp)
+            q = rope(q, pos, cfg.rope_theta)
+            k = rope(k, pos, cfg.rope_theta)
+            kt, vt = k[0].transpose(0, 1), v[0].transpose(0, 1)  # [KV, Tb, Hd]
+            kp, vp = self.k_pages[li], self.v_pages[li]  # [KV, P_total * ps, Hd]
+            kp.index_copy_(1, tail_rows, kt)
+            vp.index_copy_(1, tail_rows, vt)
+            kall = torch.cat([kp.index_select(1, ctx_rows), kt], dim=1)  # [KV, C*ps + Tb, Hd]
+            vall = torch.cat([vp.index_select(1, ctx_rows), vt], dim=1)
+            qg = q[0].reshape(Tb, KV, group, Hd)
+            scores = torch.einsum("tkgh,ksh->tkgs", qg, kall).float() / math.sqrt(Hd)
+            scores = scores.masked_fill(~mask, -1e30)
+            p = torch.softmax(scores, dim=-1).to(x.dtype)
+            o = torch.einsum("tkgs,ksh->tkgh", p, vall).reshape(1, Tb, cfg.n_heads, Hd)
+            x = x + out_proj(o, lp["wo"])
+            h = rms_norm(x, lp["ffn_norm"])
+            x = x + dense_ffn(h, lp)
+        last = rms_norm(x[:, length - 1 - start], self.params["final_norm"])  # [1, D]
+        return linear(last, self.params["lm_head"]).float()
+
+    def _tail_args(self, row, tokens, start, n_tok):
+        """Tail prefill inputs for tokens[start:start + n_tok] of a request
+        whose pages are the page-table row ``row``: the tail padded to the
+        smallest bucket that holds it, the context pages (the row's first
+        start // ps) padded to a context bucket (at least 1), and the row's
+        pages that the tail fills (zeros past the table: dead sink).
+        Returns (padded, ctx_pages, tail_pages)."""
+        ps = self.ec.page_size
+        tb = next(b for b in self.buckets if b >= n_tok)
+        j = start // ps
+        C = next(c for c in self.c_buckets if c >= max(j, 1))
+        padded = np.zeros(tb, np.int32)
+        padded[:n_tok] = tokens[start:start + n_tok]
+        ctx = np.zeros(C, np.int32)
+        ctx[:j] = row[:j]
+        tpg = np.zeros(tb // ps, np.int32)
+        m = min(len(tpg), self.ppseq - j)
+        tpg[:m] = row[j:j + m]
+        return padded, ctx, tpg
+
+    def _tail_prefill_impl(self, tokens, start, length, ctx_pages, tail_pages, gen, i):
+        """Tail prefill for slot i and its sampled token -> [1] int32 on the
+        device (not fetched)."""
+        logits = self._tail_prefill_logits(tokens, start, length, ctx_pages, tail_pages)
+        s = slice(i, i + 1)
+        return self._sample(
+            logits, self._tensor(self.samp_temps[s]), self._tensor(self.samp_top_ps[s]),
+            self._tensor(self.samp_top_ks[s]), gen, self.samp_temps[s],
         )
 
     def _decode_impl(self, last_tokens, lengths, page_tables, n_steps, gen, temps, top_ps, top_ks):
@@ -444,6 +585,8 @@ class LLMEngine:
         for n in self.block_sizes:
             toks, _, _ = self._decode(n, gen)
             toks.cpu()
+        if self.paged and self.ec.prefix_cache:
+            self._copy_pages([0], [0])  # the prefix cache's page copy, dead page onto itself
         # Reset device mirrors dirtied by the dummy executions.
         self.d_lengths.zero_()
         self.d_last.zero_()
@@ -478,12 +621,95 @@ class LLMEngine:
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
+    def _prefix_digests(self, tokens) -> list:
+        """(covered_len, digest) pairs for every page-aligned prefix of the
+        prompt plus the full prompt, from one incremental sha1 pass.
+        Ascending; lookups probe in reverse (longest first)."""
+        ps = self.ec.page_size
+        buf = np.ascontiguousarray(tokens, dtype=np.int32)
+        h = hashlib.sha1()
+        out = []
+        j = 0
+        while (j + 1) * ps <= len(buf):
+            h.update(buf[j * ps:(j + 1) * ps].tobytes())
+            j += 1
+            out.append((j * ps, h.copy().digest()))
+        if len(buf) % ps:
+            h.update(buf[j * ps:].tobytes())
+            out.append((len(buf), h.digest()))
+        return out
+
+    def _cache_insert(self, slot: _Slot) -> set:
+        """Moves a retired slot's prompt pages into the prefix cache: one
+        entry per page-aligned prefix plus the full prompt, sharing and
+        refcounting the pages. Where a shorter prefix is already cached (a
+        partial hit retiring), the new longer entries reference that entry's
+        pages for the shared span and the slot's own copies of them are
+        freed, so N requests extending one system prompt hold one copy of
+        it. Returns the slot pages the cache now owns; the caller frees the
+        rest."""
+        ps = self.ec.page_size
+        slot_pages = set(slot.pages)
+        used: set = set()
+        base: tuple = ()  # longest already-cached page run for this prefix
+        for n, dg in self._prefix_digests(slot.prompt_tokens):
+            n_pg = -(-n // ps)
+            if n_pg > len(slot.pages):
+                break
+            existing = self._prefix_cache.get(dg)
+            if existing is not None:
+                self._prefix_cache.move_to_end(dg)
+                if len(existing["pages"]) >= len(base):
+                    base = tuple(existing["pages"])
+                continue
+            pages = base + tuple(slot.pages[len(base):n_pg])
+            self._prefix_cache[dg] = {"pages": pages, "prompt_len": n}
+            for p in pages:
+                self._page_refs[p] = self._page_refs.get(p, 0) + 1
+            used.update(pages)
+            base = pages
+        return used & slot_pages
+
+    def _evict_prefix_cache(self, need_pages: int, protect: frozenset = frozenset()) -> None:
+        """LRU-evicts cache entries until need_pages pages are back in the
+        free list (admission beats cached prefixes). A page shared by several
+        chain entries frees only when its last referencing entry goes.
+        ``protect`` exempts the entry the current admission is about to hit."""
+        while need_pages > 0:
+            victim = next((k for k in self._prefix_cache if k not in protect), None)
+            if victim is None:
+                return
+            entry = self._prefix_cache.pop(victim)
+            for p in entry["pages"]:
+                self._page_refs[p] -= 1
+                if not self._page_refs[p]:
+                    del self._page_refs[p]
+                    self.free_pages.append(p)
+                    need_pages -= 1
+
+    @property
+    def prefix_cache_stats(self) -> dict:
+        return {
+            "hits": self.prefix_hits,
+            "partial_hits": self.prefix_partial_hits,
+            "misses": self.prefix_misses,
+            "entries": len(self._prefix_cache),
+            "cached_pages": len(self._page_refs),  # distinct pages held
+        }
+
     def _retire(self, i: int) -> None:
         """Free slot i's pages and zero its table row (dead slots must write
-        only into page 0 while they keep decoding inside a block)."""
+        only into page 0 while they keep decoding inside a block). With the
+        prefix cache on, an uncached prompt's pages move into the cache
+        instead of the free list."""
         slot = self.slots[i]
         if slot is not None:
-            self.free_pages.extend(slot.pages)
+            kept: set = set()
+            if slot.prompt_tokens is not None and self.paged and i not in self._prefilling:
+                # A half-prefilled prompt never enters the prefix cache: its
+                # later pages hold no KV yet.
+                kept = self._cache_insert(slot)
+            self.free_pages.extend(p for p in slot.pages if p not in kept)
         self._prefilling.pop(i, None)
         self.slots[i] = None
         self.lengths[i] = 0
@@ -501,19 +727,50 @@ class LLMEngine:
         ps = self.ec.page_size
         # 1. admit: page-budgeted assignment of waiting requests to free slots.
         admitted: list[tuple[int, str, np.ndarray, int, int, float]] = []
+        cache_hits: list[tuple[int, int]] = []  # (slot, last prompt token)
+        tail_admitted: list[tuple[int, str, np.ndarray, int, int, float]] = []
+        use_cache = self.paged and self.ec.prefix_cache
+        use_chunked = self.paged and self.ec.chunked_prefill > 0
+        chunk_size = self.ec.chunked_prefill
         for i in range(self.ec.max_slots):
             if not self.waiting or self.slots[i] is not None:
                 continue
             req_id, tokens, sp, arrived = self.waiting[0]
             P = len(tokens)
             need = self._pages_needed(P, sp.max_tokens)
+            # Cache lookup before eviction, longest match first: the full
+            # prompt (exact hit), then page-aligned prefixes (partial hit).
+            hit_dg = hit_entry = None
+            hit_len = 0
+            if use_cache:
+                for n, dg in reversed(self._prefix_digests(tokens)):
+                    e = self._prefix_cache.get(dg)
+                    if e is not None and e["prompt_len"] == n and (n == P or n % ps == 0):
+                        hit_dg, hit_entry, hit_len = dg, e, n
+                        break
             if need > len(self.free_pages):
-                break  # head-of-line blocks until pages free (FIFO fairness)
+                self._evict_prefix_cache(
+                    need - len(self.free_pages),
+                    protect=frozenset((hit_dg,)) if hit_dg is not None else frozenset(),
+                )
+            if need > len(self.free_pages):
+                # If nothing is running (no retire will ever free pages) and
+                # the only reclaimable pages are the would-be hit's own,
+                # degrade to a miss rather than stall the queue forever.
+                if hit_dg is not None and not any(s is not None for s in self.slots):
+                    hit_dg = hit_entry = None
+                    self._evict_prefix_cache(need - len(self.free_pages))
+                if need > len(self.free_pages):
+                    break  # head-of-line blocks until pages free (FIFO fairness)
             self.waiting.popleft()
             pages = [self.free_pages.popleft() for _ in range(need)]
+            exact = hit_entry is not None and hit_len == P
             self.slots[i] = _Slot(
-                req_id=req_id, max_tokens=sp.max_tokens, pages=pages, n_generated=1,
-                arrived_at=arrived, stop_ids=tuple(sp.stop_token_ids), ignore_eos=sp.ignore_eos,
+                req_id=req_id, max_tokens=sp.max_tokens, pages=pages,
+                n_generated=0 if exact else 1, arrived_at=arrived,
+                stop_ids=tuple(sp.stop_token_ids), ignore_eos=sp.ignore_eos,
+                prompt_tokens=tokens if (use_cache and not exact) else None,
+                prompt_len=P,
             )
             self.samp_temps[i] = sp.temperature
             self.samp_top_ps[i] = sp.top_p
@@ -522,8 +779,44 @@ class LLMEngine:
             row[: len(pages)] = pages
             self.page_tables[i] = row
             self.lengths[i] = P
-            bucket = next(b for b in self.buckets if b >= P)
-            admitted.append((i, req_id, tokens, bucket, sp.max_tokens, arrived))
+            if hit_entry is not None:
+                # Copy the matched pages into this request's own pages now,
+                # before a later admission of this step can evict the entry
+                # and recycle its pages.
+                self._prefix_cache.move_to_end(hit_dg)
+                n_pp = len(hit_entry["pages"])
+                self._copy_pages(hit_entry["pages"], pages[:n_pp])
+                if exact:
+                    # Decode from position P-1: the block re-derives that
+                    # position's KV and emits the first token; no prefill.
+                    self.prefix_hits += 1
+                    self.lengths[i] = P - 1
+                    cache_hits.append((i, int(tokens[-1])))
+                elif use_chunked and P - hit_len > chunk_size:
+                    # A long tail chunks too, starting at the cached prefix.
+                    self.prefix_partial_hits += 1
+                    self.slots[i].n_generated = 0
+                    self.slots[i].prefill_pos = hit_len
+                    self._prefilling[i] = tokens
+                else:
+                    # Prefill only the tail over the cached context.
+                    self.prefix_partial_hits += 1
+                    tail_admitted.append((i, req_id, tokens, hit_len, sp.max_tokens, arrived))
+                continue
+            if use_cache:
+                self.prefix_misses += 1
+            if use_chunked and P > chunk_size:
+                # One chunk per step, interleaved with the decode blocks.
+                self.slots[i].n_generated = 0
+                self.slots[i].prefill_pos = 0
+                self._prefilling[i] = tokens
+            else:
+                bucket = next(b for b in self.buckets if b >= P)
+                admitted.append((i, req_id, tokens, bucket, sp.max_tokens, arrived))
+        if cache_hits:
+            idx_t = self._tensor([h[0] for h in cache_hits], torch.long)
+            self.d_lengths[idx_t] = self._tensor([int(self.lengths[h[0]]) for h in cache_hits], torch.int32)
+            self.d_last[idx_t] = self._tensor([h[1] for h in cache_hits], torch.int32)
         # 2. dispatch prefill groups back to back, then fetch them in order.
         # (Eager dispatch of a group costs about as much host time as its
         # device work, so on the GPU the groups finish before the first
@@ -553,7 +846,41 @@ class LLMEngine:
                 self.d_lengths[idx_t] = self._tensor(lens)
                 self.d_last[idx_t] = toks_dev
                 dispatched.append((chunk, toks_dev))
-        if admitted:
+        # Partial prefix hits: one tail prefill each over the cached context.
+        for (i, req_id, tokens, start, mt, arrived) in tail_admitted:
+            P = len(tokens)
+            padded, ctx, tpg = self._tail_args(self.page_tables[i], tokens, start, P - start)
+            toks_dev = self._tail_prefill_impl(padded, start, P, ctx, tpg, self._gen, i)
+            self.d_lengths[i] = P
+            self.d_last[i] = toks_dev[0]
+            dispatched.append(([(i, req_id, tokens, None, mt, arrived)], toks_dev))
+        # 2c. chunked prefill: every mid-prefill slot advances by one chunk, so
+        # decode stalls by at most one chunk per unfinished prefill per step.
+        # The last chunk samples the request's first token and installs the
+        # slot's device rows (until then they stay zeroed: decode writes for
+        # it land in dead page 0).
+        chunk_dispatched = bool(self._prefilling)
+        for i in sorted(self._prefilling):
+            slot = self.slots[i]
+            tokens = self._prefilling[i]
+            P = len(tokens)
+            start = slot.prefill_pos
+            n_tok = min(chunk_size, P - start)
+            padded, ctx, tpg = self._tail_args(self.page_tables[i], tokens, start, n_tok)
+            if start + n_tok < P:
+                # An intermediate chunk: all its tokens are real, so it masks
+                # at its own end; nothing is sampled.
+                self._tail_prefill_logits(padded, start, start + n_tok, ctx, tpg)
+                slot.prefill_pos = start + n_tok
+                continue
+            toks_dev = self._tail_prefill_impl(padded, start, P, ctx, tpg, self._gen, i)
+            del self._prefilling[i]
+            slot.prefill_pos = P
+            slot.n_generated = 1
+            self.d_lengths[i] = P
+            self.d_last[i] = toks_dev[0]
+            dispatched.append(([(i, slot.req_id, tokens, None, slot.max_tokens, slot.arrived_at)], toks_dev))
+        if admitted or cache_hits or tail_admitted or chunk_dispatched:
             self.d_page_tables = self._tensor(self._masked_page_tables())
             self.d_temps = self._tensor(self.samp_temps)
             self.d_top_ps = self._tensor(self.samp_top_ps)
@@ -574,7 +901,9 @@ class LLMEngine:
                 }
                 retired |= self._maybe_finish(i, events)
         # 3. decode: one block over all slots. Queue pressure shrinks the
-        # block so the next admission wave starts sooner.
+        # block so the next admission wave starts sooner. Slots mid chunked
+        # prefill ride along masked (writes to dead page 0, tokens dropped)
+        # but do not drive the block's budget arithmetic.
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and i not in self._prefilling]
         toks = None
@@ -584,7 +913,13 @@ class LLMEngine:
             positive = [r for r in remaining if r > 0]
             cap = self.ec.max_seq - 1 - int(max(self.lengths[i] for i in active))
             if positive and cap > 0:
-                block = self.block_sizes[0] if self.waiting else self.block_sizes[-1]
+                # Short block under queue pressure, or while any slot still
+                # owes its first token (an exact prefix hit gets it from this
+                # block; a full block would delay it by block_size steps).
+                awaiting_first = bool(self._prefilling) or any(
+                    not self.slots[i].emitted for i in active)
+                block = (self.block_sizes[0] if (self.waiting or awaiting_first)
+                         else self.block_sizes[-1])
                 # Snap DOWN to a block size that fits: an oversized block
                 # advances lengths past max_seq - 1 and would overwrite the
                 # longest slot's earlier KV.
@@ -621,13 +956,17 @@ class LLMEngine:
                     self.lengths[i] += 1
                     slot.emitted.append(tok)
                     ev = events.setdefault(slot.req_id, {"finished": False, "ttft_s": None})
+                    if slot.first_token_at is None:
+                        # An exact prefix hit's first token comes out of the block.
+                        slot.first_token_at = time.perf_counter()
+                        ev["ttft_s"] = slot.first_token_at - slot.arrived_at
                     ev["token"] = tok
                     ev.setdefault("new_tokens", []).append(tok)
                     retired |= self._maybe_finish(i, events)
         if retired:
             # Re-sync device mirrors so retired slots stop advancing their
             # (now meaningless) lengths toward max_seq, and their writes land
-            # in the dead page.
+            # in the dead page. Mid-prefill slots stay masked.
             self.d_lengths = self._tensor(self._masked_lengths())
             self.d_page_tables = self._tensor(self._masked_page_tables())
             last = np.zeros(self.ec.max_slots, np.int32)

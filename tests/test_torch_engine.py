@@ -133,8 +133,16 @@ def test_dense_and_paged_layouts_agree_and_warmup_leaves_no_trace():
     assert outs[0] == outs[1] == outs[2]
 
 
-@pytest.mark.parametrize("option", [dict(prefix_cache=True), dict(chunked_prefill=16),
-                                    dict(tensor_parallel=2)])
+@pytest.mark.parametrize("option", [dict(kv_layout="dense", prefix_cache=True),
+                                    dict(kv_layout="dense", chunked_prefill=16),
+                                    dict(kv_layout="paged", page_size=16, tensor_parallel=2)])
 def test_later_slice_options_raise(option):
-    with pytest.raises(NotImplementedError, match="later slice|next serving slice"):
-        _engine(kv_layout="paged", page_size=16, max_seq=128, **option)
+    """The prefix cache and chunked prefill are ported but need the paged
+    layout (ValueError, as in ray_tpu); tensor-parallel serving is a later
+    slice (NotImplementedError)."""
+    if "tensor_parallel" in option:
+        exc, match = NotImplementedError, "later slice"
+    else:
+        exc, match = ValueError, "requires kv_layout='paged'"
+    with pytest.raises(exc, match=match):
+        _engine(max_seq=128, **option)
