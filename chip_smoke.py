@@ -6,7 +6,11 @@
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
   2. build: compiles the CUDA kernels from ray_tpu_torch/ops/csrc (one nvcc
-     per source, in parallel) into ray_tpu_torch/ops/_build_out.
+     per source, in parallel) into ray_tpu_torch/ops/_build_out, every
+     template instance (K1, K3 and K2 at head dims 64 and 128; K4 per
+     group) in the same build, and prints each instance's ptxas registers
+     and spill bytes (a source already built by an earlier run of the same
+     checkout is not compiled again and has no report).
   3. K1 (flash forward) against its plain version, mha_reference in fp32
      on the same bf16 inputs, at B in {1, 8}, S in {512, 1000, 2048}, H 16,
      KV 4, D 64, causal and not, with a pad segment, plus MQA (H 8, KV 1),
@@ -81,6 +85,32 @@ Phases, in order; any failure exits non-zero:
      differ); one page copy bitwise equal in every layer. TTFT of the seed,
      the partial and the exact hits and decode tokens/s during the steps
      that begin mid-prefill are printed, not gated.
+  3-5 at D 128: phases 3, 4 and 5 again at head dim 128 and Mistral-7B's
+     heads (H 32, KV 8), after every D-64 phase (3, 4, 5, 5b) has run on
+     the random streams of earlier versions of this script. K1: B in {1, 8},
+     S in {512, 1000, 4096}, causal and not, with a pad segment, plus MQA
+     (H 8, KV 1), packed segments (B 2 x S 4096), S 64 and S 33; K3/K2 the
+     same set at B in {1, 2}; the plain versions run one batch row at a time
+     (a row's fp32 scores are 2.1 GB). The same tolerances and two-launch
+     checks. K1 timed at the 7B engine's prefill shape (one group of 8 x
+     1024) and its training shape (B 8 x S 4096), K3/K2 at the training
+     shape, each beside SDPA's forward or backward; the timed K3/K2 inputs
+     are also held against the plain backward, so the training shape
+     itself is checked (at D 64 too). K4: the 7B engine's
+     decode shape (32 sequences of 1025..1152 tokens, page 128, group 4, a
+     32-page table), one sequence split over most of its table, the
+     two-launch check, then timed at the decode shape.
+  6c. serve-mistral7b-paged: Mistral-7B-v0.3's shape (vocab 32768, d_model
+     4096, 32 layers, 32 heads, 8 KV heads, head_dim 128, d_ff 14336,
+     max_seq 4096, rope_theta 1e6; 7.25B parameters, 14.5 GB in bf16) with
+     seeded random weights through the paged engine (page 128, 32 slots:
+     1025 pages, 17.2 GB of KV); warmup, then 32 greedy requests of 1024
+     prompt tokens and 128 new tokens at once. Gates: every request
+     finishes with its 128 tokens inside the vocabulary; K1 launches =
+     32 x the prefill groups and K4 = 32 x the decode steps, both counted
+     from the engine's calls and both > 0; the prefill logits of all 32
+     prompts against the plain forward (4 prompts at a time) within phase
+     6's 0.25 / 0.02, every first token within 0.25 of the plain top-1.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -101,15 +131,28 @@ Phases, in order; any failure exits non-zero:
      12 recompute), K3 12 and K2 12. Prints step time, tokens/s, MFU
      (bench.py's formula, 6 N T + 12 L d S T, against 989 TFLOP/s) and peak
      memory.
-  8. JSON lines {"engine": ...}, {"engine_prefix": ...}, {"train": ...},
-     {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  7e. train-mistral7b-4L: at Mistral-7B's widths, first the gradient check
+     of 7(a) (2 layers, B 1 x S 2048, K1-K3 at D 128 against the plain
+     path, per leaf relative L2 <= 5e-2, one launch of each per layer), then
+     make_train_step at the same widths cut to 4 layers (1.141B parameters;
+     the whole model's AdamW state alone is 116 GB), remat "dots", AdamW,
+     B 8 x S 4096 on one seeded batch: a warmup step, then 10 timed steps.
+     The loss must be finite and fall; each step launches K1 8 times, K3 4
+     and K2 4. Prints step time, tokens/s, MFU and peak memory.
+  8. JSON lines {"engine": ...}, {"engine_prefix": ...},
+     {"engine_mistral7b": ...}, {"train": ...}, {"train_mistral7b": ...},
+     {"kernels": [...]} (each kernel's D-64 numbers, its "d128" numbers and
+     its launches by path, ptxas's registers and spills per instance, null
+     where this run did not compile it) and,
+     last, {"ok": true, "device": ...}.
 
 ``--profile DIR`` also traces the paged engine with torch.profiler (the
 admission step with its prefills, then two decode steps), the admission
 step of 32 more partial hits in phase 6b (with the device time under the
-tail attention's einsums and softmax, the GEMMs and the page copies) and one
-training step, prints each window's device time by kind of kernel, and
-writes the kernel tables and traces to DIR.
+tail attention's einsums and softmax, the GEMMs and the page copies), the
+7B engine's admission step and two decode steps (6c), and one training
+step of each training cell, prints each window's device time by kind of
+kernel, and writes the kernel tables and traces to DIR.
 """
 from __future__ import annotations
 
@@ -131,6 +174,17 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 H, KV, D = 16, 4, 64
 MODEL = dict(vocab_size=32_000, d_model=1024, n_layers=12, n_heads=H, n_kv_heads=KV,
              d_ff=4096, max_seq_len=2048)
+# Mistral-7B-v0.3's published shape (huggingface.co/mistralai/Mistral-7B-v0.3,
+# config.json: hidden_size 4096, 32 layers, 32 heads, 8 KV heads, head_dim
+# 128, intermediate_size 14336, vocab 32768, rope_theta 1e6, no sliding
+# window, untied embeddings). One departure: RMSNorm eps is 1e-6 here, as in
+# both packages' rms_norm, where Mistral publishes 1e-5.
+H7, KV7, D7 = 32, 8, 128
+MISTRAL = dict(vocab_size=32_768, d_model=4096, n_layers=32, n_heads=H7, n_kv_heads=KV7, d_ff=14_336,
+               max_seq_len=4096, rope_theta=1e6)
+M_REQ, M_PROMPT, M_TOKENS, M_SLOTS, M_CHECK_CHUNK = 32, 1024, 128, 32, 4  # phase 6c
+M_TRAIN_LAYERS, M_TRAIN_B, M_TRAIN_S = 4, 8, 4096  # phase 7e (depth cut to 4 layers)
+M_PARITY_LAYERS, M_PARITY_B, M_PARITY_S = 2, 1, 2048
 N_REQ, PROMPT_LEN, MAX_TOKENS, SLOTS, PAGE = 32, 512, 64, 32, 128
 K1_CHECK = ((1, 512), (1, 1000), (1, 2048), (8, 512), (8, 1000), (8, 2048))  # (B, S)
 K4_B, K4_PPSEQ = 32, 16  # sequences; pages per sequence (max length 2048)
@@ -150,6 +204,23 @@ PREFIX_OPS = ("aten::einsum", "aten::_softmax", "aten::masked_fill", "aten::mm",
               "aten::index_copy_", "aten::cat")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 2048, 10  # bench.py's batch and sequence
 PARITY_LAYERS, PARITY_B = 2, 2
+# The kernel phases' shapes for each head dim: D 64 at the 250M model's
+# heads, D 128 at Mistral-7B's (H 32, KV 8). k1/k23: (B, S) swept with a
+# pad segment, causal and not; extra: (B, S, H, KV, segments); det: the
+# two-launch check's (B, S); prefill/train: the timed shapes (one group of 8
+# prompts of the serving cell's prompt length; the training cell's batch).
+# rows: the plain versions run one batch row at a time (a row's fp32 scores
+# at 32 heads x 4096^2 are 2.1 GB).
+SHAPES = {
+    64: dict(h=H, kv=KV, d=D, k1=K1_CHECK, k23=K23_CHECK, extra=K23_EXTRA, det=(2, TRAIN_S),
+             prefill=(8, PROMPT_LEN), train=(TRAIN_B, TRAIN_S), rows=False),
+    128: dict(h=H7, kv=KV7, d=D7, k1=((1, 512), (1, 1000), (1, 4096), (8, 512), (8, 1000), (8, 4096)),
+              k23=((1, 512), (1, 1000), (1, 4096), (2, 512), (2, 1000), (2, 4096)),
+              extra=((2, 1000, 8, 1, "pad"), (2, 4096, H7, KV7, "packed"), (2, 64, H7, KV7, "pad"),
+                     (3, 33, 8, 2, "pad")),
+              det=(2, 4096), prefill=(8, M_PROMPT), train=(M_TRAIN_B, M_TRAIN_S), rows=True),
+}
+K4_128 = dict(lengths=(M_PROMPT + 1, M_PROMPT + M_TOKENS), ppseq=4096 // 128)  # the 7B engine's decode shape
 
 
 def log(*a):
@@ -224,20 +295,36 @@ def phase_device():
 
 
 def phase_build():
+    """Builds every kernel; prints ptxas's registers and spills for each
+    instance this run compiled and returns them: {kernel: {head dim or "-":
+    {registers, spill_stores, spill_loads}}}. A source whose library was
+    already built is not compiled and has no report (its kernels' "ptxas"
+    is null in the kernels line)."""
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all()
+    compiled = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    report, cur = {}, None
     for name in _build.SOURCES:
-        path = _build.log_path(name)
-        if path.exists():
-            for line in path.read_text().splitlines():
-                kernel = re.search(r"([a-z_]+_kernel)", line) if "entry function" in line else None
-                if kernel:
-                    log(f"  {name}: {kernel.group(1)}")
-                elif "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+        if name not in compiled:
+            log(f"  {name}: already built, not compiled in this run: no ptxas report")
+            continue
+        for line in _build.log_path(name).read_text().splitlines():
+            kernel = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line) if "entry function" in line else None
+            if kernel:
+                cur = report.setdefault(kernel.group(1), {}).setdefault(kernel.group(2) or "-", {})
+                log(f"  {name}: {kernel.group(1)}" + (f"<{kernel.group(2)}>" if kernel.group(2) else ""))
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+                if cur is not None:
+                    for key, pat in (("registers", r"Used (\d+) registers"),
+                                     ("spill_stores", r"(\d+) bytes spill stores"),
+                                     ("spill_loads", r"(\d+) bytes spill loads")):
+                        m = re.search(pat, line)
+                        if m:
+                            cur[key] = int(m.group(1))
+    return report
 
 
 def _seg(B, S, rng, kind="pad"):
@@ -262,99 +349,136 @@ def causal_pairs(seg):
     return pairs
 
 
-def k1_cost(seg, nbytes_io):
+def k1_cost(seg, nbytes_io, h=H, d=D):
     """FLOPs this input needs (valid causal same-segment pairs only) and bytes."""
-    return 4 * D * H * causal_pairs(seg), nbytes_io
+    return 4 * d * h * causal_pairs(seg), nbytes_io
 
 
-def _check_k1(dev, B, S, seg, causal, h=H, kv=KV, label="pad"):
+def _mha_rows(q, k, v, causal=True, seg=None, scale=None):
+    """mha_reference one batch row at a time, in the inputs' dtype: (o,
+    lse [B * H, S])."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    outs, lses = [], []
+    for b in range(q.shape[0]):
+        o, lse = att.mha_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal, scale=scale,
+                                   segment_ids=None if seg is None else seg[b:b + 1], return_lse=True)
+        outs.append(o)
+        lses.append(lse.reshape(-1, q.shape[1]))
+    return torch.cat(outs), torch.cat(lses)
+
+
+def _bwd_rows(q, k, v, o, lse, do, seg=None, causal=True, scale=None):
+    """flash_bwd_reference one batch row at a time: (dq, dk, dv)."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    h = q.shape[2]
+    parts = [att.flash_bwd_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1], o[b:b + 1], lse[b * h:(b + 1) * h],
+                                     do[b:b + 1], segment_ids=None if seg is None else seg[b:b + 1],
+                                     causal=causal, scale=scale)
+             for b in range(q.shape[0])]
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def _check_k1(dev, B, S, seg, causal, h=H, kv=KV, label="pad", d=D):
     """K1 against mha_reference in fp32 on the same bf16 inputs; returns
     max |o - o_ref|."""
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
-    q = torch.randn(B, S, h, D, device=dev).bfloat16()
-    k = torch.randn(B, S, kv, D, device=dev).bfloat16()
-    v = torch.randn(B, S, kv, D, device=dev).bfloat16()
+    q = torch.randn(B, S, h, d, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, d, device=dev).bfloat16()
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     torch.cuda.synchronize()
-    o_ref, lse_ref = att.mha_reference(q.float(), k.float(), v.float(), causal=causal,
-                                       segment_ids=seg, return_lse=True)
+    o_ref, lse_ref = _mha_rows(q.float(), k.float(), v.float(), causal, seg)
     err = (o.float() - o_ref).abs().max().item()
-    lse_err = (lse - lse_ref.reshape(B * h, S)).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
     finite = bool(torch.isfinite(o).all())
-    log(f"K1 B={B} S={S} H={h} KV={kv} {label} causal={causal}: max|o-ref| {err:.3e}  "
+    log(f"K1 D={d} B={B} S={S} H={h} KV={kv} {label} causal={causal}: max|o-ref| {err:.3e}  "
         f"max|lse-ref| {lse_err:.3e}  finite {finite}")
     if not (finite and err <= 2e-2 and lse_err <= 1e-3):
-        raise AssertionError(f"K1 disagrees with its plain version at B={B} S={S} H={h} KV={kv} {label} "
+        raise AssertionError(f"K1 disagrees with its plain version at D={d} B={B} S={S} H={h} KV={kv} {label} "
                              f"causal={causal}")
     return err
 
 
-def phase_k1(dev, rng):
+def phase_k1(dev, rng, shp):
+    """Phase 3 at one head dim (an entry of SHAPES)."""
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
+    h, kv, d = shp["h"], shp["kv"], shp["d"]
+
+    def plain(q, k, v, seg=None):
+        if shp["rows"]:
+            return _mha_rows(q, k, v, True, seg)
+        return att.mha_reference(q, k, v, causal=True, segment_ids=seg)
+
     worst = 0.0
-    for B, S in K1_CHECK:
+    for B, S in shp["k1"]:
         seg = torch.from_numpy(_seg(B, S, rng)).to(dev)
         for causal in (True, False):
-            worst = max(worst, _check_k1(dev, B, S, seg, causal))
-    for B, S, h, kv, kind in K23_EXTRA:
+            worst = max(worst, _check_k1(dev, B, S, seg, causal, h, kv, d=d))
+    for B, S, hh, kk, kind in shp["extra"]:
         seg = torch.from_numpy(_seg(B, S, rng, kind)).to(dev)
         for causal in (True, False):
-            worst = max(worst, _check_k1(dev, B, S, seg, causal, h, kv, kind))
+            worst = max(worst, _check_k1(dev, B, S, seg, causal, hh, kk, kind, d=d))
     torch.cuda.empty_cache()
     # Determinism: no atomics; two launches on the same inputs give the same bits.
-    B, S = 2, TRAIN_S
+    B, S = shp["det"]
     seg = torch.from_numpy(_seg(B, S, rng, "packed")).to(dev)
-    q = torch.randn(B, S, H, D, device=dev).bfloat16()
-    k, v = (torch.randn(B, S, KV, D, device=dev).bfloat16() for _ in range(2))
+    q = torch.randn(B, S, h, d, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, kv, d, device=dev).bfloat16() for _ in range(2))
     runs = [att.flash_fwd(q, k, v, segment_ids=seg, causal=True) for _ in range(2)]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(*runs)]
-    log(f"K1 determinism (B={B} S={S} packed, two launches): o {same[0]}  lse {same[1]} bitwise equal")
+    log(f"K1 D={d} determinism (B={B} S={S} packed, two launches): o {same[0]}  lse {same[1]} bitwise equal")
     if not all(same):
-        raise AssertionError("K1 is not deterministic: two launches on the same inputs differ")
+        raise AssertionError(f"K1 at D={d} is not deterministic: two launches on the same inputs differ")
     del q, k, v, runs
-    # Timing at the engine's prefill shape: one group of 8 prompts of 512
-    # tokens in the 512 bucket (no padding, so one segment per row).
-    B, S = 8, PROMPT_LEN
-    q = torch.randn(B, S, H, D, device=dev).bfloat16()
-    k = torch.randn(B, S, KV, D, device=dev).bfloat16()
-    v = torch.randn(B, S, KV, D, device=dev).bfloat16()
+    # Timing at the engine's prefill shape: one group of 8 prompts in their
+    # bucket (no padding, so one segment per row).
+    B, S = shp["prefill"]
+    q = torch.randn(B, S, h, d, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, d, device=dev).bfloat16()
     seg_np = np.zeros((B, S), np.int32)
     seg = torch.from_numpy(seg_np).to(dev)
     ms = device_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
     eager_ms = time_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
-    plain_ms = time_ms(lambda: att.mha_reference(q, k, v, causal=True, segment_ids=seg))
+    plain_ms = time_ms(lambda: plain(q, k, v, seg))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     mask = (causal[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S + 4 * B * S
-    bound_ms, bound_by = bound(*k1_cost(seg_np, nbytes))
-    flops = k1_cost(seg_np, nbytes)[0]
-    log(f"K1 at engine shape B={B} S={S}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * h * S + 4 * B * S
+    bound_ms, bound_by = bound(*k1_cost(seg_np, nbytes, h, d))
+    flops = k1_cost(seg_np, nbytes, h, d)[0]
+    log(f"K1 D={d} at engine shape B={B} S={S}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
         f"{ms / bound_ms:.2f}x bound; eager {eager_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
         f"sdpa {library_ms:.4f} ms ({ms / library_ms:.2f}x)  bound {bound_ms:.4f} ms ({bound_by})")
-    del q, k, v, qt, kt, vt
-    # The training shape: bench.py's batch, one causal sequence per row.
-    B, S = TRAIN_B, TRAIN_S
-    q = torch.randn(B, S, H, D, device=dev).bfloat16()
-    k = torch.randn(B, S, KV, D, device=dev).bfloat16()
-    v = torch.randn(B, S, KV, D, device=dev).bfloat16()
+    del q, k, v, qt, kt, vt, mask
+    # The training shape: one causal sequence per row.
+    B, S = shp["train"]
+    q = torch.randn(B, S, h, d, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, d, device=dev).bfloat16()
     t_ms = device_ms(lambda: att.flash_fwd(q, k, v, causal=True), iters=10)
-    t_plain = time_ms(lambda: att.mha_reference(q, k, v, causal=True), iters=3, warmup=1)
+    t_plain = time_ms(lambda: plain(q, k, v), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     t_lib = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
-    t_flops = 4 * D * H * causal_pairs(np.zeros((B, S), np.int32))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * h * S
+    t_flops = 4 * d * h * causal_pairs(np.zeros((B, S), np.int32))
     t_bound, t_by = bound(t_flops, nbytes)
-    log(f"K1 at training shape B={B} S={S}: kernel {t_ms:.4f} ms ({t_flops / t_ms / 1e9:.1f} TFLOP/s, "
+    log(f"K1 D={d} at training shape B={B} S={S}: kernel {t_ms:.4f} ms ({t_flops / t_ms / 1e9:.1f} TFLOP/s, "
         f"{t_ms / t_bound:.2f}x bound)  plain {t_plain:.4f} ms  sdpa {t_lib:.4f} ms ({t_ms / t_lib:.2f}x)  "
         f"bound {t_bound:.4f} ms ({t_by})")
     del q, k, v, qt, kt, vt
@@ -364,14 +488,14 @@ def phase_k1(dev, rng):
                 train_shape=dict(ms=t_ms, plain_ms=t_plain, library_ms=t_lib, bound_ms=t_bound, bound_by=t_by))
 
 
-def _paged_case(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV):
+def _paged_case(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV, d=D):
     import torch
 
     B = len(lengths)
     P_total = B * ppseq + 1
-    kp = torch.randn(kv, P_total, ps, D, device=dev).bfloat16()
-    vp = torch.randn(kv, P_total, ps, D, device=dev).bfloat16()
-    q = torch.randn(B, h, D, device=dev).bfloat16()
+    kp = torch.randn(kv, P_total, ps, d, device=dev).bfloat16()
+    vp = torch.randn(kv, P_total, ps, d, device=dev).bfloat16()
+    q = torch.randn(B, h, d, device=dev).bfloat16()
     table = np.zeros((B, ppseq), np.int32)
     for b in range(B):
         n = math.ceil(lengths[b] / ps)
@@ -380,24 +504,24 @@ def _paged_case(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV):
     return q, kp, vp, lens, torch.from_numpy(table).to(dev)
 
 
-def _check_k4(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV, case=None):
+def _check_k4(dev, rng, lengths, ps=PAGE, ppseq=K4_PPSEQ, h=H, kv=KV, case=None, d=D):
     """K4 against paged_attention_reference in fp32 on the same bf16 inputs.
     Returns (max |o - o_ref|, o, inputs)."""
     import torch
 
     from ray_tpu_torch.ops import paged_attention as pa
 
-    case = case or _paged_case(dev, rng, lengths, ps, ppseq, h, kv)
+    case = case or _paged_case(dev, rng, lengths, ps, ppseq, h, kv, d)
     o = pa.paged_decode(*case)
     torch.cuda.synchronize()
     q, kp, vp, lens, table = case
     o_ref = pa.paged_attention_reference(q.float(), kp.float(), vp.float(), lens, table)
     err = (o.float() - o_ref).abs().max().item()
     zero_rows = all(not o[b].any().item() for b, n in enumerate(lengths) if n == 0)
-    log(f"K4 B={len(lengths)} ps={ps} pages/seq={ppseq} H={h} KV={kv} lengths {min(lengths)}..{max(lengths)}: "
+    log(f"K4 D={d} B={len(lengths)} ps={ps} pages/seq={ppseq} H={h} KV={kv} lengths {min(lengths)}..{max(lengths)}: "
         f"max|o-ref| {err:.3e}  length-0 rows zero {zero_rows}")
     if not (err <= 2e-2 and zero_rows and bool(torch.isfinite(o).all())):
-        raise AssertionError(f"K4 disagrees with its plain version at B={len(lengths)} ps={ps} H={h} KV={kv}")
+        raise AssertionError(f"K4 disagrees with its plain version at D={d} B={len(lengths)} ps={ps} H={h} KV={kv}")
     return err, o, case
 
 
@@ -411,11 +535,49 @@ def _k4_lengths(rng, B, ps, ppseq):
     return [int(n) for n in lengths]
 
 
-def phase_k4(dev, rng):
+def _time_k4(dev, rng, lengths, ppseq, h, kv, d):
+    """K4 timed at a decode shape; 8 pool copies rotate so each launch reads
+    its pages from device memory, as the engine's do (a layer apart)."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    cases = [_paged_case(dev, rng, lengths, PAGE, ppseq, h, kv, d) for _ in range(8)]
+    it = iter(range(1 << 30))
+
+    def run(fn):
+        return lambda: fn(*cases[next(it) % len(cases)])
+
+    ms = device_ms(run(pa.paged_decode), iters=40)
+    eager_ms = time_ms(run(pa.paged_decode), iters=40)
+    plain_ms = time_ms(run(pa.paged_attention_reference), iters=40)
+    B, tokens = len(lengths), int(sum(lengths))
+    pages = int(sum(math.ceil(n / PAGE) for n in lengths))
+    nbytes = 2 * tokens * kv * d * 2 + 2 * B * h * d * 2 + 4 * B + 4 * pages
+    bound_ms, bound_by = bound(4 * h * d * tokens, nbytes)
+    log(f"K4 D={d} at engine shape B={B} lengths {min(lengths)}..{max(lengths)}: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.1f} GB/s, {ms / bound_ms:.2f}x bound; eager {eager_ms:.4f} ms)  "
+        f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _k4_determinism(dev, rng, lengths, ppseq, h, kv, d):
+    """Two launches on the same inputs give the same bits, with a call at
+    another batch size between them, and the ticket counters are back at 0."""
     import torch
 
     from ray_tpu_torch.ops import paged_attention as pa
 
+    _, o1, case = _check_k4(dev, rng, lengths, PAGE, ppseq, h, kv, d=d)
+    _check_k4(dev, rng, _k4_lengths(rng, 5, PAGE, ppseq), PAGE, ppseq, h, kv, d=d)
+    o2 = pa.paged_decode(*case)
+    torch.cuda.synchronize()
+    same, reset = torch.equal(o1, o2), not pa._COUNTERS[o1.device].any().item()
+    log(f"K4 D={d} determinism (B={len(lengths)}, two launches around a B=5 call): bitwise equal {same}  "
+        f"counters at 0 {reset}")
+    if not (same and reset):
+        raise AssertionError(f"K4 at D={d} is not deterministic or left a ticket counter set")
+
+
+def phase_k4(dev, rng):
     max_len = PAGE * K4_PPSEQ
     lengths = rng.integers(1, max_len + 1, K4_B)
     lengths[[0, 1, K4_B - 1]] = [0, 1, max_len]
@@ -426,65 +588,59 @@ def phase_k4(dev, rng):
                 ppseq = max_len // ps if B == 1 else 8
                 e, _, _ = _check_k4(dev, rng, _k4_lengths(rng, B, ps, ppseq), ps, ppseq, KV * group, KV)
                 err = max(err, e)
-    # Determinism, and counters back at 0: two launches on the same inputs
-    # give the same bits, with a call at another batch size between them.
-    lengths = _k4_lengths(rng, K4_B, PAGE, K4_PPSEQ)
-    _, o1, case = _check_k4(dev, rng, lengths)
-    _check_k4(dev, rng, _k4_lengths(rng, 5, PAGE, K4_PPSEQ))
-    o2 = pa.paged_decode(*case)
-    torch.cuda.synchronize()
-    same, reset = torch.equal(o1, o2), not pa._COUNTERS[o1.device].any().item()
-    log(f"K4 determinism (B={K4_B}, two launches around a B=5 call): bitwise equal {same}  counters at 0 {reset}")
-    if not (same and reset):
-        raise AssertionError("K4 is not deterministic or left a ticket counter set")
-    # Timing at the engine's decode shape; 8 pool copies rotate so each launch
-    # reads its pages from device memory, as the engine's do (12 layers apart).
+    _k4_determinism(dev, rng, _k4_lengths(rng, K4_B, PAGE, K4_PPSEQ), K4_PPSEQ, H, KV, D)
     lengths = rng.integers(PROMPT_LEN + 1, PROMPT_LEN + MAX_TOKENS + 1, N_REQ)
-    cases = [_paged_case(dev, rng, lengths) for _ in range(8)]
-    it = iter(range(1 << 30))
-
-    def run(fn):
-        return lambda: fn(*cases[next(it) % len(cases)])
-
-    ms = device_ms(run(pa.paged_decode), iters=40)
-    eager_ms = time_ms(run(pa.paged_decode), iters=40)
-    plain_ms = time_ms(run(pa.paged_attention_reference), iters=40)
-    tokens = int(lengths.sum())
-    pages = int(sum(math.ceil(n / PAGE) for n in lengths))
-    nbytes = 2 * tokens * KV * D * 2 + 2 * N_REQ * H * D * 2 + 4 * N_REQ + 4 * pages
-    bound_ms, bound_by = bound(4 * H * D * tokens, nbytes)
-    log(f"K4 at engine shape B={N_REQ} lengths {lengths.min()}..{lengths.max()}: kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.1f} GB/s, {ms / bound_ms:.2f}x bound; eager {eager_ms:.4f} ms)  "
-        f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, **_time_k4(dev, rng, [int(n) for n in lengths], K4_PPSEQ, H, KV, D))
 
 
-def _bwd_case(dev, B, S, seg=None, causal=True, h=H, kv=KV):
+def phase_k4_d128(dev, rng):
+    """K4 at D 128 and Mistral-7B's heads (group 4): the 7B engine's decode
+    shape (32 sequences of 1025..1152 tokens, page 128, a 32-page table) and
+    one sequence split over most of its table, the two-launch check, then
+    the time at the decode shape."""
+    import torch
+
+    lo, hi = K4_128["lengths"]
+    ppseq = K4_128["ppseq"]
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, M_REQ)]
+    err = max(_check_k4(dev, rng, lengths, PAGE, ppseq, H7, KV7, d=D7)[0],
+              _check_k4(dev, rng, _k4_lengths(rng, 1, PAGE, ppseq), PAGE, ppseq, H7, KV7, d=D7)[0])
+    _k4_determinism(dev, rng, lengths, ppseq, H7, KV7, D7)
+    out = dict(max_abs_err=err, **_time_k4(dev, rng, lengths, ppseq, H7, KV7, D7))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_case(dev, B, S, seg=None, causal=True, h=H, kv=KV, d=D):
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
-    q = torch.randn(B, S, h, D, device=dev).bfloat16()
-    k = torch.randn(B, S, kv, D, device=dev).bfloat16()
-    v = torch.randn(B, S, kv, D, device=dev).bfloat16()
-    do = torch.randn(B, S, h, D, device=dev).bfloat16()
+    q = torch.randn(B, S, h, d, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    do = torch.randn(B, S, h, d, device=dev).bfloat16()
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     return q, k, v, o, lse, do
 
 
-def _check_k23(dev, B, S, seg, causal, worst, h=H, kv=KV, label=""):
+def _check_k23(dev, B, S, seg, causal, worst, h=H, kv=KV, label="", d=D):
     """K3 and K2 (through flash_bwd) against flash_bwd_reference in fp32 on
     the same bf16 inputs."""
+    q, k, v, o, lse, do = _bwd_case(dev, B, S, seg, causal, h, kv, d)
+    _hold_k23(q, k, v, o, lse, do, seg, causal, worst, f"D={d} B={B} S={S} H={h} KV={kv} {label} causal={causal}")
+
+
+def _hold_k23(q, k, v, o, lse, do, seg, causal, worst, desc):
+    """One launch of K3 and K2 (through flash_bwd) on these inputs against
+    flash_bwd_reference in fp32, one batch row at a time."""
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, o, lse, do = _bwd_case(dev, B, S, seg, causal, h, kv)
     got = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
     torch.cuda.synchronize()
-    want = att.flash_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-                                   segment_ids=seg, causal=causal)
+    want = _bwd_rows(q.float(), k.float(), v.float(), o.float(), lse, do.float(), seg, causal)
     parts = []
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g.float() - w).abs().max().item()
@@ -492,71 +648,78 @@ def _check_k23(dev, B, S, seg, causal, worst, h=H, kv=KV, label=""):
         finite = bool(torch.isfinite(g).all())
         parts.append(f"{name} {err:.3e} (max|ref| {top:.2f})")
         if not (finite and err <= 2e-2 * top + 2e-2):
-            raise AssertionError(f"K2/K3 {name} disagrees with its plain version at "
-                                 f"B={B} S={S} H={h} KV={kv} {label} causal={causal}: {err} (max|ref| {top})")
+            raise AssertionError(f"K2/K3 {name} disagrees with its plain version at {desc}: {err} (max|ref| {top})")
         worst[name] = max(worst[name], err)
-    log(f"K3/K2 B={B} S={S} H={h} KV={kv} {label} causal={causal}: max|g-ref| " + "  ".join(parts))
+    log(f"K3/K2 {desc}: max|g-ref| " + "  ".join(parts))
 
 
-def phase_k23(dev, rng):
+def phase_k23(dev, rng, shp):
+    """Phase 5 at one head dim (an entry of SHAPES)."""
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
+    h, kv, d = shp["h"], shp["kv"], shp["d"]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    for B, S in K23_CHECK:
+    for B, S in shp["k23"]:
         seg = torch.from_numpy(_seg(B, S, rng)).to(dev)
         for causal in (True, False):
-            _check_k23(dev, B, S, seg, causal, worst, label="pad")
-    for B, S, h, kv, kind in K23_EXTRA:
+            _check_k23(dev, B, S, seg, causal, worst, h, kv, "pad", d)
+    for B, S, hh, kk, kind in shp["extra"]:
         seg = torch.from_numpy(_seg(B, S, rng, kind)).to(dev)
         for causal in (True, False):
-            _check_k23(dev, B, S, seg, causal, worst, h, kv, label=kind)
+            _check_k23(dev, B, S, seg, causal, worst, hh, kk, kind, d)
     torch.cuda.empty_cache()
 
     # Determinism: no atomics, a fixed summation order; two launches of each
     # kernel on the same inputs give the same bits.
-    B, S = 2, TRAIN_S
+    B, S = shp["det"]
     seg = torch.from_numpy(_seg(B, S, rng, "packed")).to(dev)
-    q, k, v, o, lse, do = _bwd_case(dev, B, S, seg)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
+    q, k, v, o, lse, do = _bwd_case(dev, B, S, seg, True, h, kv, d)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * h, S)
     runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, seg), *att.flash_bwd_dkv(q, k, v, do, lse, delta, seg))
             for _ in range(2)]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(*runs)]
-    log(f"K3/K2 determinism (B={B} S={S} packed, two launches): dq {same[0]}  dk {same[1]}  dv {same[2]} bitwise equal")
+    log(f"K3/K2 D={d} determinism (B={B} S={S} packed, two launches): dq {same[0]}  dk {same[1]}  dv {same[2]} "
+        f"bitwise equal")
     if not all(same):
-        raise AssertionError("K3/K2 are not deterministic: two launches on the same inputs differ")
+        raise AssertionError(f"K3/K2 at D={d} are not deterministic: two launches on the same inputs differ")
     del q, k, v, o, lse, do, delta, runs
     torch.cuda.empty_cache()
 
     # Timing at the training shape (causal, one sequence per row, as the
     # train phase runs them).
-    B, S = TRAIN_B, TRAIN_S
-    q, k, v, o, lse, do = _bwd_case(dev, B, S)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
+    B, S = shp["train"]
+    q, k, v, o, lse, do = _bwd_case(dev, B, S, h=h, kv=kv, d=d)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(B * h, S)
     dq_ms = device_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), iters=10)
     dkv_ms = device_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta), iters=10)
-    plain_ms = time_ms(lambda: att.flash_bwd_reference(q, k, v, o, lse, do), iters=3, warmup=1)
+    plain = _bwd_rows if shp["rows"] else att.flash_bwd_reference
+    plain_ms = time_ms(lambda: plain(q, k, v, o, lse, do), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    # The timed shape itself, held like the sweep (no new random draws).
+    _hold_k23(q, k, v, o, lse, do, None, True, worst, f"D={d} B={B} S={S} H={h} KV={kv} train causal=True")
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
-    pairs = B * H * S * (S + 1) // 2
-    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 2 * 4 * B * H * S  # q k v dO, LSE delta
-    dq_bound = bound(6 * D * pairs, io + 2 * q.numel())
-    dkv_bound = bound(8 * D * pairs, io + 2 * (k.numel() + v.numel()))
-    for name, ms, flops, (b_ms, b_by) in (("K3 (dQ)", dq_ms, 6 * D * pairs, dq_bound),
-                                          ("K2 (dK,dV)", dkv_ms, 8 * D * pairs, dkv_bound)):
-        log(f"{name} at training shape B={B} S={S}: kernel {ms:.4f} ms  {flops / ms / 1e9:.1f} TFLOP/s  "
+    pairs = B * h * S * (S + 1) // 2
+    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 2 * 4 * B * h * S  # q k v dO, LSE delta
+    dq_bound = bound(6 * d * pairs, io + 2 * q.numel())
+    dkv_bound = bound(8 * d * pairs, io + 2 * (k.numel() + v.numel()))
+    for name, ms, flops, (b_ms, b_by) in (("K3 (dQ)", dq_ms, 6 * d * pairs, dq_bound),
+                                          ("K2 (dK,dV)", dkv_ms, 8 * d * pairs, dkv_bound)):
+        log(f"{name} D={d} at training shape B={B} S={S}: kernel {ms:.4f} ms  {flops / ms / 1e9:.1f} TFLOP/s  "
             f"bound {b_ms:.4f} ms ({b_by})  {ms / b_ms:.2f}x bound")
     log(f"  K3 + K2 {dq_ms + dkv_ms:.4f} ms = {(dq_ms + dkv_ms) / library_ms:.2f}x sdpa backward (dq, dk, dv) "
         f"{library_ms:.4f} ms;  plain backward (dq, dk, dv) {plain_ms:.4f} ms")
     del q, k, v, o, lse, do, delta, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
     common = dict(plain_ms=plain_ms, library_ms=library_ms,
-                  plain_covers="flash_bwd_reference: dq, dk and dv in one call",
+                  plain_covers="flash_bwd_reference: dq, dk and dv in one call"
+                               + (", one batch row at a time" if shp["rows"] else ""),
                   library_covers="scaled_dot_product_attention backward: dq, dk and dv in one call; "
                                  "compare with K3 + K2 together")
     return (dict(max_abs_err=worst["dq"], ms=dq_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1], **common),
@@ -663,21 +826,28 @@ def drive(eng, prompts, max_tokens, prefix="r"):
     return done, ttft, t0, time.perf_counter()
 
 
-def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02):
+def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02, chunk=None):
     """The engine's prefill logits against the plain forward, and each
-    request's first token against the plain logits' top-1."""
+    request's first token against the plain logits' top-1; `chunk` prompts
+    at a time (default all: the plain forward's fp32 scores grow with it)."""
     import torch
 
     from ray_tpu_torch.models import forward
 
-    n = len(prompts)
-    toks = torch.tensor(np.stack(prompts), dtype=torch.long, device=dev)
+    n, P = len(prompts), len(prompts[0])
+    chunk = chunk or n
     plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    plain, served = [], []
     with torch.no_grad():
-        plain = forward(eng.params, toks, plain_cfg)[:, -1].float()  # [n, V]
-        third = (np.zeros((n, PROMPT_LEN // PAGE), np.int32) if eng.paged
-                 else np.arange(n, dtype=np.int64))  # dead page / idle slots
-        served = eng._prefill_logits(np.stack(prompts), np.full(n, PROMPT_LEN, np.int32), third)
+        for i in range(0, n, chunk):
+            part = np.stack(prompts[i:i + chunk])
+            m = len(part)
+            toks = torch.tensor(part, dtype=torch.long, device=dev)
+            plain.append(forward(eng.params, toks, plain_cfg)[:, -1].float())  # [m, V]
+            third = (np.zeros((m, P // eng.ec.page_size), np.int32) if eng.paged
+                     else np.arange(m, dtype=np.int64))  # dead page / idle slots
+            served.append(eng._prefill_logits(part, np.full(m, P, np.int32), third))
+    plain, served = torch.cat(plain), torch.cat(served)
     diff = (served - plain).abs()
     first = torch.tensor([done[f"r{i}"]["tokens"][0] for i in range(n)], device=dev)
     gap = plain.max(dim=-1).values - plain.gather(1, first[:, None])[:, 0]
@@ -689,6 +859,8 @@ def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02
     if not (bool(torch.isfinite(served).all()) and diff.max() <= tol_max and diff.mean() <= tol_mean
             and gap.max() <= tol_max):
         raise AssertionError("engine prefill disagrees with the plain forward")
+    return dict(logits_max_diff=diff.max().item(), logits_mean_diff=diff.mean().item(), first_token_top1=top1,
+                first_token_worst_gap=gap.max().item())
 
 
 def phase_engine(dev, rng, profile_dir=None):
@@ -1035,6 +1207,172 @@ def phase_train(dev, card, profile_dir=None):
     return stats, launches, splash_launches
 
 
+def _count_calls(eng):
+    """Counts the engine's prefill groups and decode steps from here on
+    (each prefill group is one K1 launch per layer, each decode step one K4
+    launch per layer). Returns (groups, steps, undo)."""
+    groups, steps = [], []
+    prefill, decode = eng._prefill_batch_impl, eng._decode
+
+    def counted_prefill(tokens, *a):
+        groups.append(tokens.shape)
+        return prefill(tokens, *a)
+
+    def counted_decode(n, gen):
+        steps.append(n)
+        return decode(n, gen)
+
+    eng._prefill_batch_impl, eng._decode = counted_prefill, counted_decode
+
+    def undo():
+        del eng._prefill_batch_impl, eng._decode  # back to the class's methods
+
+    return groups, steps, undo
+
+
+def phase_mistral_serve(dev, rng, profile_dir=None):
+    """Phase 6c (serve-mistral7b-paged): Mistral-7B-v0.3's shape at full
+    width and depth (32 layers, head_dim 128) through the paged engine with
+    seeded random weights; 32 greedy requests of 1024 prompt tokens and 128
+    new tokens at once. K1 at D 128 prefills, K4 at D 128 decodes."""
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.models.transformer import leaves
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    cfg = TransformerConfig(**MISTRAL)
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg, engine_config=EngineConfig(
+        max_slots=M_SLOTS, max_seq=cfg.max_seq_len, kv_layout="paged", page_size=PAGE, seed=0))
+    n_params = sum(t.numel() for t in leaves(eng.params))
+    pool_gb = 2 * eng.k_pages.numel() * eng.k_pages.element_size() / 1e9
+    eng.warmup(buckets=(M_PROMPT,))
+    torch.cuda.synchronize()
+    log(f"engine mistral7b: {n_params / 1e9:.3f}B params (bf16 {2 * n_params / 1e9:.1f} GB), paged KV "
+        f"{eng.ec.total_pages} pages x {PAGE} tokens ({pool_gb:.1f} GB), built and warmed up in "
+        f"{time.perf_counter() - t0:.2f} s, memory {torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    prompts = [rng.integers(0, cfg.vocab_size, M_PROMPT).astype(np.int32) for _ in range(M_REQ)]
+    groups, steps, undo = _count_calls(eng)
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    done, ttft, t0, t1 = drive(eng, prompts, M_TOKENS)
+    launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+    undo()
+    n_tok = sum(len(ev["tokens"]) for ev in done.values())
+    tt = sorted(ttft.values())
+    decode_s = t1 - t0 - max(tt)  # every request arrives at t0; after the last first token, decode only
+    stats = dict(
+        ttft_p50_ms=1e3 * statistics.median(tt),
+        ttft_p99_ms=1e3 * _pct(tt, 0.99),
+        decode_tok_s=(n_tok - M_REQ) / decode_s,
+        tok_s=n_tok / (t1 - t0),
+        wall_s=t1 - t0,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        n_params=n_params, prefill_groups=len(groups), decode_steps=sum(steps),
+    )
+    log(f"engine mistral7b paged: {len(done)} requests x {M_TOKENS} tokens, wall {stats['wall_s']:.3f} s, "
+        f"TTFT p50 {stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, "
+        f"decode {stats['decode_tok_s']:.1f} tok/s, overall {stats['tok_s']:.1f} tok/s, "
+        f"peak mem {stats['peak_mem_gb']:.2f} GB")
+    want = {"flash_fwd": cfg.n_layers * len(groups), "paged_decode": cfg.n_layers * sum(steps)}
+    log(f"  launches on the main path: K1 {launches['flash_fwd']}  K4 {launches['paged_decode']} "
+        f"({len(groups)} prefill groups {groups[:1]}..., {sum(steps)} decode steps; expected {want})")
+    if not _finished(done, M_REQ, cfg.vocab_size, max_tokens=M_TOKENS):
+        raise AssertionError("mistral7b engine run did not finish every request with max_tokens valid tokens")
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"mistral7b launches {launches} != {want} (or a kernel never launched)")
+    stats.update(check_first_tokens(cfg, eng, prompts, done, dev, chunk=M_CHECK_CHUNK))
+    if profile_dir:
+        profile_engine(eng, prompts, profile_dir, M_TOKENS, prefix="mistral7b_")
+    del eng
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def phase_mistral_train(dev, card, profile_dir=None):
+    """Phase 7e (train-mistral7b-4L): the gradient check at Mistral-7B's
+    widths (2 layers, B 1 x S 2048, K1-K3 at D 128 against the plain path),
+    then make_train_step on the same widths cut to 4 layers at B 8 x S 4096."""
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, make_train_step
+    from ray_tpu_torch.models.transformer import init_params, leaves
+    from ray_tpu_torch.ops import attention
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": M_PARITY_LAYERS})
+    g = torch.Generator(device=dev).manual_seed(2)
+    params = init_params(cfg, g, device=dev)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M_PARITY_B, M_PARITY_S + 1), generator=g, device=dev)}
+    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+    loss_f, g_flash = _loss_grads(params, batch, dataclasses.replace(cfg, attention_impl="flash"))
+    parity_launches = (attention.LAUNCHES, attention.BWD_DQ_LAUNCHES, attention.BWD_DKV_LAUNCHES)
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    loss_r, g_ref = _loss_grads(params, batch, plain_cfg)
+    rel = _rel_errs(g_flash, g_ref)
+    log(f"train mistral7b parity ({M_PARITY_LAYERS} layers, B {M_PARITY_B} x S {M_PARITY_S}, bf16, D {D7}): "
+        f"oracle attention_impl={plain_cfg.attention_impl!r}; loss flash {loss_f:.5f} reference {loss_r:.5f}; "
+        f"per-leaf |g-g_ref|/|g_ref| max {max(rel):.3e} mean {statistics.mean(rel):.3e}; launches K1/K3/K2 "
+        f"{parity_launches}")
+    if not (math.isfinite(loss_f) and abs(loss_f - loss_r) <= 1e-2 and max(rel) <= 5e-2):
+        raise AssertionError(f"mistral7b flash training gradients disagree with the plain path: {rel}")
+    if parity_launches != (M_PARITY_LAYERS,) * 3:
+        raise AssertionError(f"the parity step did not run K1, K3, K2 once per layer: {parity_launches}")
+    del params, g_flash, g_ref, batch
+    torch.cuda.empty_cache()
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": M_TRAIN_LAYERS}, remat=True, remat_policy="dots")
+    init_state, train_step = make_train_step(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(g, device=dev)
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M_TRAIN_B, M_TRAIN_S + 1), generator=g, device=dev)}
+    t0 = time.perf_counter()
+    first = train_step(state, batch)
+    torch.cuda.synchronize()
+    log(f"train mistral7b: {n_params / 1e9:.3f}B params ({M_TRAIN_LAYERS} of {MISTRAL['n_layers']} layers), remat "
+        f"{cfg.remat_policy!r}, B {M_TRAIN_B} x S {M_TRAIN_S}, warmup step {time.perf_counter() - t0:.2f} s, "
+        f"loss {first['loss'].item():.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [train_step(state, batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {"flash_fwd": attention.LAUNCHES, "flash_bwd_dq": attention.BWD_DQ_LAUNCHES,
+                "flash_bwd_dkv": attention.BWD_DKV_LAUNCHES}
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    tokens = M_TRAIN_B * M_TRAIN_S
+    flops = 6.0 * n_params * tokens + 12.0 * cfg.n_layers * cfg.d_model * M_TRAIN_S * tokens
+    stats = dict(step_ms=dt * 1e3, tokens_per_s=tokens / dt, mfu=flops / dt / PEAK_BF16_FLOPS,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, loss_first=losses[0],
+                 loss_last=losses[-1], n_params=n_params, parity_max_rel=max(rel), card=card)
+    log(f"train mistral7b: {TRAIN_STEPS} steps, step {stats['step_ms']:.2f} ms, {stats['tokens_per_s']:.1f} "
+        f"tokens/s, MFU {stats['mfu']:.4f} (6NT + 12LdST against 989 TFLOP/s), peak mem "
+        f"{stats['peak_mem_gb']:.2f} GB  [{card}]")
+    log(f"  loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  grad_norm {' '.join(f'{x:.3f}' for x in gnorms)}")
+    log(f"  launches in {TRAIN_STEPS} steps: K1 {launches['flash_fwd']}  K3 {launches['flash_bwd_dq']}  "
+        f"K2 {launches['flash_bwd_dkv']}")
+    if not all(math.isfinite(x) for x in losses + gnorms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"mistral7b training loss is not finite and falling: {losses}")
+    want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS, "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"mistral7b kernel launches in {TRAIN_STEPS} training steps {launches} != {want}")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        _profile_window("mistral7b_train_step", lambda: train_step(state, batch), profile_dir)
+    del state, batch
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
 # Device time by kind in a profile: (kind, substrings of the device
 # kernel's name); the first match wins, the rest is "other".
 KERNEL_KINDS = (
@@ -1094,14 +1432,14 @@ def _profile_window(name, fn, out_dir, ops=()):
     log(ka.table(sort_by=key, row_limit=12))
 
 
-def profile_engine(eng, prompts, out_dir):
+def profile_engine(eng, prompts, out_dir, max_tokens=MAX_TOKENS, prefix=""):
     """The paged engine under torch.profiler: the admission step (32
     prefills and the first decode block), then two decode-only steps."""
     os.makedirs(out_dir, exist_ok=True)
     for i, p in enumerate(prompts):
-        eng.add_request(f"p{i}", p, MAX_TOKENS)
-    _profile_window("admit_step", eng.step, out_dir)
-    _profile_window("decode_2_steps", lambda: (eng.step(), eng.step()), out_dir)
+        eng.add_request(f"p{i}", p, max_tokens)
+    _profile_window(f"{prefix}admit_step", eng.step, out_dir)
+    _profile_window(f"{prefix}decode_2_steps", lambda: (eng.step(), eng.step()), out_dir)
     while eng.has_work():
         eng.step()
 
@@ -1126,37 +1464,52 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
-    k1 = phase_k1(dev, rng)
+    ptxas = phase_build()
+    # Every D-64 phase first, in the order and on the random streams of
+    # earlier versions of this script; then the D-128 kernel phases.
+    k1 = phase_k1(dev, rng, SHAPES[64])
     k4 = phase_k4(dev, rng)
-    k3, k2 = phase_k23(dev, rng)
+    k3, k2 = phase_k23(dev, rng, SHAPES[64])
     splash = phase_splash(dev, rng, k1["train_shape"], k3, k2)
+    k1_128 = phase_k1(dev, rng, SHAPES[128])
+    k4_128 = phase_k4_d128(dev, rng)
+    k3_128, k2_128 = phase_k23(dev, rng, SHAPES[128])
     stats, launches = phase_engine(dev, rng, args.profile)
     prefix, p_launches = phase_prefix(dev, rng, args.profile)
+    m_serve, m_launches = phase_mistral_serve(dev, rng, args.profile)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
+    m_train, mt_launches = phase_mistral_train(dev, card, args.profile)
+    # Launches by path: serve, serve_prefix and train are the 250M cells
+    # (D 64); serve_mistral7b and train_mistral7b the 7B cells (D 128).
+    paths = {"serve": launches, "serve_prefix": p_launches, "train": t_launches, "serve_mistral7b": m_launches,
+             "train_mistral7b": mt_launches}
+
+    def by_path(kernel):
+        return {p: n[kernel] for p, n in paths.items() if kernel in n}
+
+    def entry(name, source, replaces, timed, d128, **extra):
+        counts = by_path(name)
+        kind = {"paged_decode": "paged_decode_kernel"}.get(name, f"{name}_kernel")
+        d128 = dict(d128, launches_by_path={p: n for p, n in counts.items() if p.endswith("mistral7b")})
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=sum(counts.values()),
+                    launches_by_path=counts, ptxas=ptxas.get(kind), **timed, d128=d128, **extra)
+
     bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [
-        dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
-             replaces="ray_tpu/ops/attention.py:92",
-             launches=launches["flash_fwd"] + p_launches["flash_fwd"] + t_launches["flash_fwd"],
-             launches_by_path={"serve": launches["flash_fwd"], "serve_prefix": p_launches["flash_fwd"],
-                               "train": t_launches["flash_fwd"]}, **k1),
-        dict(name="flash_bwd_dq", route="cuda", source=bwd_src, replaces="ray_tpu/ops/attention.py:277",
-             launches=t_launches["flash_bwd_dq"], **k3),
-        dict(name="flash_bwd_dkv", route="cuda", source=bwd_src, replaces="ray_tpu/ops/attention.py:210",
-             launches=t_launches["flash_bwd_dkv"], **k2),
-        dict(name="paged_decode", route="cuda", source="ray_tpu_torch/ops/csrc/paged_decode.cu",
-             replaces="ray_tpu/ops/paged_attention.py:67",
-             launches=launches["paged_decode"] + p_launches["paged_decode"],
-             launches_by_path={"serve": launches["paged_decode"], "serve_prefix": p_launches["paged_decode"]},
-             **k4),
+        entry("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu", "ray_tpu/ops/attention.py:92", k1, k1_128),
+        entry("flash_bwd_dq", bwd_src, "ray_tpu/ops/attention.py:277", k3, k3_128),
+        entry("flash_bwd_dkv", bwd_src, "ray_tpu/ops/attention.py:210", k2, k2_128),
+        entry("paged_decode", "ray_tpu_torch/ops/csrc/paged_decode.cu", "ray_tpu/ops/paged_attention.py:67", k4,
+              k4_128),
         dict(name="splash", route="onto K1-K3", source="ray_tpu_torch/ops/splash.py",
              replaces="ray_tpu/ops/splash.py:33", launches=sum(s_launches.values()),
              launches_by_kernel=s_launches, **splash),
     ]
     log(json.dumps({"engine": stats}))
     log(json.dumps({"engine_prefix": prefix}))
+    log(json.dumps({"engine_mistral7b": m_serve}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"train_mistral7b": m_train}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

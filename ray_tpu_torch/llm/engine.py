@@ -70,7 +70,7 @@ from ray_tpu_torch.models.transformer import (
     rms_norm,
     rope,
 )
-from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.attention import check_head_dim, flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
 
 
@@ -196,6 +196,9 @@ class LLMEngine:
         self.device = torch.device(device)
         self.cfg = cfg
         self.ec = engine_config or EngineConfig()
+        if cfg.n_experts:
+            raise ValueError("MoE serving not supported yet (dense decode path only)")
+        check_head_dim(cfg.head_dim, self.device)  # prefill runs K1 on the card
         if self.ec.tensor_parallel > 1:
             raise NotImplementedError(
                 "tensor_parallel > 1 is not ported yet (tensor-parallel serving is a later slice)")
@@ -231,6 +234,7 @@ class LLMEngine:
             gen = torch.Generator(device=self.device).manual_seed(self.ec.seed)
             params = init_params(cfg, gen, self.device)
         self.set_params(params)
+        del params  # a tree drawn here is fp32: free it before the KV pool is allocated
         L = cfg.n_layers
         B = self.ec.max_slots
         dev = self.device

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.attention import check_head_dim, flash_attention, mha_reference
 from ray_tpu_torch.ops.splash import splash_attention
 
 
@@ -451,6 +451,8 @@ def make_train_step(cfg: TransformerConfig, optimizer=None):
                     "pass device='cpu' to run on the CPU"
                 )
             device = "cuda"
+        if cfg.attention_impl in ("auto", "flash", "splash"):  # the flash kernels on the card
+            check_head_dim(cfg.head_dim, device)
         params = init_params(cfg, generator, device)
         for t in leaves(params):
             t.requires_grad_(True)

@@ -5,9 +5,11 @@ into a shared library with a plain C interface, which ``ctypes`` loads; no
 PyTorch header is included, so a build takes seconds. The library lands in
 ``_build_out/`` beside this file (git-ignored), named by a digest of its
 source and of every shared header (``csrc/*.cuh``), so an edited source or
-header is rebuilt and an unchanged one is reused.
-``build_all`` starts one ``nvcc`` per source, all at once, and waits for
-them together.
+header is rebuilt and an unchanged one is reused. The compiler's output
+(ptxas's registers and spills) lands beside the library under the same
+name, so it always belongs to the build it sits next to.
+``build_all`` starts one ``nvcc`` per source, all at once, waits for them
+together and says which sources it compiled.
 """
 from __future__ import annotations
 
@@ -51,8 +53,9 @@ def _target(name: str) -> Path:
 
 
 def log_path(name: str) -> Path:
-    """The compiler's output (ptxas register / shared-memory report)."""
-    return OUT / f"{name}.log"
+    """The compiler's output (ptxas register / shared-memory report) of the
+    build of the current sources; it exists once they have been compiled."""
+    return _target(name).with_suffix(".log")
 
 
 def _start(name: str):
@@ -81,8 +84,9 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)
 
 
-def build_all(names=SOURCES) -> None:
-    """Compiles every named source that is not built yet, in parallel."""
+def build_all(names=SOURCES) -> tuple[str, ...]:
+    """Compiles every named source that is not built yet, in parallel;
+    returns the names it compiled (not those already built)."""
     with _lock:
         started = {n: _start(n) for n in names if n not in _libs}
         errors = []
@@ -93,6 +97,7 @@ def build_all(names=SOURCES) -> None:
                 errors.append(str(e))
         if errors:
             raise KernelBuildError("\n".join(errors))
+        return tuple(n for n, s in started.items() if s is not None)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,7 +18,12 @@ for every S, where the TPU wrapper needed S % 128 == 0.
 Layouts are the JAX package's: q [B, S, H, D], k/v [B, S, KV, D] with KV
 dividing H (GQA: q head h reads kv head h // (H // KV), never repeated in
 the kernels), optional segment_ids [B, S] masking attention to same-segment
-pairs. LSE and delta are fp32 [B * H, S].
+pairs. LSE and delta are fp32 [B * H, S]. The kernels are built for the head
+dims in ``HEAD_DIMS`` (64 and 128); ``check_head_dim`` is the one test of
+that, read by the kernels' wrappers and by the constructors that would
+launch them (``LLMEngine``, ``make_train_step``'s ``init_state``), so a model
+at another head dim fails when it is built on the card, not at its first
+step. The plain versions take every D.
 """
 from __future__ import annotations
 
@@ -31,11 +36,25 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
+# Head dims the CUDA kernels K1, K3 and K2 are built for (template
+# instances in csrc/flash_fwd.cu and csrc/flash_bwd.cu).
+HEAD_DIMS = (64, 128)
+
 # Launches of each kernel (incremented where it is launched, nowhere else):
 # K1 flash forward, K3 backward dQ, K2 backward dK/dV.
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+
+
+def check_head_dim(head_dim, device):
+    """Raises ValueError when the flash kernels would run on ``device`` at a
+    head dim they are not built for. CPU devices take the plain versions,
+    which accept every head dim."""
+    if torch.device(device).type == "cuda" and head_dim not in HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {head_dim} is not supported by the flash kernels on CUDA "
+            f"(supported: {', '.join(map(str, HEAD_DIMS))})")
 
 
 def _valid_pairs(S_q, S_k, causal, segment_ids, device):
@@ -134,8 +153,7 @@ def _check_qkv(q, k, v):
         _check(name, t, torch.bfloat16, q.device)
     if k.shape != (B, S, KV, D) or v.shape != k.shape:
         raise ValueError(f"flash kernel: k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if D != 64:
-        raise ValueError(f"flash kernel: head_dim {D} unsupported (the kernel is built for 64)")
+    check_head_dim(D, q.device)
     if H % KV:
         raise ValueError(f"n_heads {H} not divisible by kv_heads {KV}")
 

@@ -14,11 +14,12 @@
 // pairs). K2 owns the GQA sum inside one block: no atomics, and dQ, dK and
 // dV are deterministic, launch after launch.
 //
-// What bounds them on an H100: operations. At the training shape (B 16,
-// S 2048, H 16, KV 4, D 64, causal) K3 does 6 * D FLOPs per valid (q, k)
-// pair and head (Q K^T, dO V^T, dS K) and K2 8 * D (K Q^T, V dO^T, P^T dO,
-// dS^T Q): 206 and 275 GFLOP against 0.24 and 0.21 GB of inputs and
-// outputs, 3-4.5x the card's ~295 FLOP/byte ridge.
+// What bounds them on an H100: operations. At the 250M model's training
+// shape (B 16, S 2048, H 16, KV 4, D 64, causal) K3 does 6 * D FLOPs per
+// valid (q, k) pair and head (Q K^T, dO V^T, dS K) and K2 8 * D (K Q^T,
+// V dO^T, P^T dO, dS^T Q): 206 and 275 GFLOP against 0.24 and 0.21 GB of
+// inputs and outputs, 3-4.5x the card's ~295 FLOP/byte ridge; at the 7B
+// model's (B 8, S 4096, H 32, KV 8, D 128) 1.65 and 2.2 TFLOP.
 //
 // What this design does about it:
 // - Every product is a Hopper warpgroup MMA (wgmma.mma_async m64n64k16, bf16
@@ -40,7 +41,23 @@
 // - Three warpgroups per block: two consumers, each owning one 64-row tile of
 //   the block's own operand (128 Q rows in K3, 128 keys in K2) and sharing
 //   every ring tile, and the producer warpgroup, which gives its registers
-//   to the consumers with setmaxnreg (56 vs 224 per thread).
+//   to the consumers with setmaxnreg (56 vs 224 per thread). K2 at D 128
+//   has no producer warpgroup: its consumers hold dK and dV, 64 x 128 fp32
+//   each, 128 registers a thread, beside S^T and dP^T, 64 more, which only
+//   an 8-warp block lets ptxas give them (246 registers, no spill); warp 0
+//   of the first consumer feeds the ring between its tiles.
+// - Head dim D is a template parameter, instantiated at 64 and 128. A tile
+//   is D / 64 panels of 64 columns (8 KB each, one TMA box each: the
+//   128-byte swizzle spans one 64-wide bf16 row). The products over D (S, dP,
+//   S^T, dP^T) take D / 16 K-major k16 steps, steps 4-7 in the second panel.
+//   The products whose N is D (dQ += dS K; dV += P^T dO; dK += dS^T Q) are
+//   issued as one m64n64k16 per panel per k16 step, each reading its panel
+//   MN-major with the D-64 descriptor: the same descriptor arithmetic as
+//   D 64, where one m64n128k16 would need a leading-byte offset across two
+//   swizzle atoms that nothing else here uses. Their accumulators are D / 64
+//   arrays of 32 fp32 per thread. At D 128 K3 holds Q and dO (2 tiles each,
+//   64 KB) and a 3-stage K/V ring (96 KB); K2 K and V (64 KB) and a 3-stage
+//   Q/dO ring (96 KB) with its LSE, delta and segment rows.
 // - Masks only where needed: a tile wholly below the diagonal, inside S and
 //   inside one segment takes the unmasked path; only the diagonal tile, the
 //   ragged tail and tiles crossing a segment boundary test per element.
@@ -53,8 +70,8 @@
 //
 // Layout at the interface: q, dO, dQ [B, S, H, D]; k, v, dK, dV [B, S, KV, D]
 // (row-major, contiguous, 16-byte aligned); LSE and delta [B*H, S] fp32; seg
-// [B, S] int32 or null. D must be 64. The PTX and host helpers shared with
-// K1 (flash_fwd.cu) live in sm90.cuh.
+// [B, S] int32 or null. D must be 64 or 128. The PTX and host helpers shared
+// with K1 (flash_fwd.cu) live in sm90.cuh.
 
 #include "sm90.cuh"
 
@@ -62,24 +79,27 @@ namespace {
 
 using namespace sm90;
 
-// Ring tiles first: every tile sits at a multiple of 8 KB from a 1024-byte
-// aligned base, as the 128-byte swizzle needs.
+// Tiles first: every tile (BT x D bf16, 8 KB per panel) and so every panel
+// sits at a multiple of 8 KB from a 1024-byte aligned base, as the 128-byte
+// swizzle needs.
+template <int D>
 struct SmemDq {
-  bf16 q[NCONS][TILE];
-  bf16 dout[NCONS][TILE];
-  bf16 k[NSTAGE][TILE];
-  bf16 v[NSTAGE][TILE];
+  bf16 q[NCONS][BT * D];
+  bf16 dout[NCONS][BT * D];
+  bf16 k[NSTAGE][BT * D];
+  bf16 v[NSTAGE][BT * D];
   int seg_k[NSTAGE][BT];
   int seg_lo[NSTAGE], seg_hi[NSTAGE];  // over the tile's keys inside S
   int own_lo[NCONS], own_hi[NCONS];    // over each consumer's rows inside S
   uint64_t full[NSTAGE], empty[NSTAGE], own;
 };
 
+template <int D>
 struct SmemDkv {
-  bf16 k[NCONS][TILE];
-  bf16 v[NCONS][TILE];
-  bf16 q[NSTAGE][TILE];
-  bf16 dout[NSTAGE][TILE];
+  bf16 k[NCONS][BT * D];
+  bf16 v[NCONS][BT * D];
+  bf16 q[NSTAGE][BT * D];
+  bf16 dout[NSTAGE][BT * D];
   float lse[NSTAGE][BT];  // times log2(e)
   float delta[NSTAGE][BT];
   int seg_q[NSTAGE][BT];
@@ -149,14 +169,16 @@ __device__ __forceinline__ void scores_to_p_ds(float (&sc)[32], float (&dp)[32],
 
 // ----------------------------------------------------------------- K3 (dQ)
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ seg, bf16* __restrict__ dq, int S, int H, int KV, int causal,
                     float scale) {
+  constexpr int NP = D / PANEL_COLS, KSTEPS = D / 16;
   extern __shared__ unsigned char smem_raw[];
-  SmemDq& sm = *reinterpret_cast<SmemDq*>(align1024(smem_raw));
+  SmemDq<D>& sm = *reinterpret_cast<SmemDq<D>*>(align1024(smem_raw));
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * (NCONS * BT);  // heaviest causal blocks first
   int n_tiles = (S + BT - 1) / BT;
@@ -170,7 +192,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
     // their registers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     if (threadIdx.x / 32 % 4 == 0) {
-      load_own(sm.q, sm.dout, &map_q, &map_do, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
+      load_own<D>(sm.q, sm.dout, &map_q, &map_do, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % NSTAGE, k0 = t * BT;
         int sk0 = 0, sk1 = 0;
@@ -190,9 +212,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
           }
         }
         if (lane == 0) {
-          mbar_arrive_tx(&sm.full[s], 2 * TILE_BYTES);
-          tma_load(sm.k[s], &map_k, &sm.full[s], kvh, k0, b);
-          tma_load(sm.v[s], &map_v, &sm.full[s], kvh, k0, b);
+          mbar_arrive_tx(&sm.full[s], 2 * BT * D * 2);
+          tma_tile<D>(sm.k[s], &map_k, &sm.full[s], kvh, k0, b);
+          tma_tile<D>(sm.v[s], &map_v, &sm.full[s], kvh, k0, b);
         } else {
           mbar_arrive(&sm.full[s]);
         }
@@ -216,9 +238,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
     }
     const float scale_log2 = scale * LOG2E;
 
-    float acc_dq[32];
+    float acc_dq[NP][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc_dq[i] = 0.f;
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_dq[p][i] = 0.f;
 
     mbar_wait(&sm.own, 0);
     const int own_lo = sm.own_lo[wg], own_hi = sm.own_hi[wg];
@@ -233,9 +257,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
         uint32_t a_ds[4][4];
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc_s, dsc_q + kk * KMAJOR_STEP, dsc_k + kk * KMAJOR_STEP, kk);
+        for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_s, dsc_q + kstep(kk), dsc_k + kstep(kk), kk);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc_dp, dsc_do + kk * KMAJOR_STEP, dsc_v + kk * KMAJOR_STEP, kk);
+        for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_dp, dsc_do + kstep(kk), dsc_v + kstep(kk), kk);
         wg_commit();
         wg_wait_all();
         reg_fence(acc_s);
@@ -251,7 +275,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
         acc_to_a(acc_s, a_ds);  // dS, bf16
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dq, a_ds[kk], dsc_k + kk * MNMAJOR_STEP);  // dQ += dS K
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_panels(acc_dq, a_ds[kk], dsc_k, kk);  // dQ += dS K
         wg_commit();
         wg_wait_all();
         reg_fence(acc_dq);
@@ -261,20 +285,81 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
       if (lane == 0) mbar_arrive(&sm.empty[s]);
       __syncwarp();
     }
-    store_rows(acc_dq, dq + ((size_t)b * S * H + h) * D, (size_t)H * D, row_a, S, lane);
+    store_panels(acc_dq, dq + ((size_t)b * S * H + h) * D, (size_t)H * D, row_a, S, lane);
   }
 }
 
 // ------------------------------------------------------------- K2 (dK, dV)
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+// Threads of a K2 block. D 64: three warpgroups, the producer warpgroup's
+// warp 0 feeding the ring and giving its registers to the consumers with
+// setmaxnreg. D 128: only the two consumer warpgroups, whose warp 0 also
+// feeds the ring (dkv_produce between its tiles). ptxas sizes each
+// thread's registers from the block's thread count alone (setmaxnreg does
+// not raise it), against a quarter of the SM's registers for the warps of
+// each scheduler: 168 at 12 warps (or 9), 255 at 8. The D-128 consumers
+// hold dK and dV (128 fp32) beside S^T and dP^T (64) and take 246: at 168
+// they spilled, whatever setmaxnreg split was asked for. D 64 keeps its
+// producer warpgroup because the 256-thread block is slower there: on an
+// H100 (700 W) at B 16 x S 2048 it took 0.949 ms against 0.712 ms (PERF.md
+// section 6), its warp 0 stalling on the slowest warp before every refill.
+template <int D>
+constexpr int dkv_threads() {
+  return D == 64 ? NTHREADS : NCONS * 128;
+}
+
+// The producer's step for ring tile t: the tile's LSE (times log2(e)),
+// delta and segment rows into the stage once it is free, then TMA of its Q
+// and dO tiles. One warp, all lanes.
+template <int D>
+__device__ __forceinline__ void dkv_produce(SmemDkv<D>& sm, int t, const CUtensorMap* map_q,
+                                            const CUtensorMap* map_do, const float* lse, const float* delta,
+                                            const int* segb, int b, int kvh, int group, int H, int S, int n_q,
+                                            int qi0, int lane) {
+  const int s = t % NSTAGE;
+  const int g = t / (n_q - qi0), q0 = (qi0 + t % (n_q - qi0)) * BT;
+  const int h = kvh * group + g;
+  const float* lrow = lse + (size_t)(b * H + h) * S;
+  const float* drow = delta + (size_t)(b * H + h) * S;
+  const int r0 = q0 + lane, r1 = r0 + 32;
+  // Row state first, so its load latency overlaps the wait.
+  const float l0 = r0 < S ? lrow[r0] * LOG2E : 0.f, l1 = r1 < S ? lrow[r1] * LOG2E : 0.f;
+  const float d0 = r0 < S ? drow[r0] : 0.f, d1 = r1 < S ? drow[r1] : 0.f;
+  const int s0 = segb && r0 < S ? segb[r0] : 0, s1 = segb && r1 < S ? segb[r1] : 0;
+  mbar_wait(&sm.empty[s], ((t / NSTAGE) & 1) ^ 1);
+  sm.lse[s][lane] = l0;
+  sm.lse[s][lane + 32] = l1;
+  sm.delta[s][lane] = d0;
+  sm.delta[s][lane + 32] = d1;
+  if (segb) {
+    int lo, hi;
+    warp_range(s0, r0 < S, s1, r1 < S, lo, hi);
+    sm.seg_q[s][lane] = s0;
+    sm.seg_q[s][lane + 32] = s1;
+    if (lane == 0) {
+      sm.seg_lo[s] = lo;
+      sm.seg_hi[s] = hi;
+    }
+  }
+  if (lane == 0) {
+    mbar_arrive_tx(&sm.full[s], 2 * BT * D * 2);
+    tma_tile<D>(sm.q[s], map_q, &sm.full[s], h, q0, b);
+    tma_tile<D>(sm.dout[s], map_do, &sm.full[s], h, q0, b);
+  } else {
+    mbar_arrive(&sm.full[s]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(dkv_threads<D>(), 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
                      const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ seg, bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
                      int KV, int causal, float scale) {
+  constexpr int NP = D / PANEL_COLS, KSTEPS = D / 16;
   extern __shared__ unsigned char smem_raw[];
-  SmemDkv& sm = *reinterpret_cast<SmemDkv*>(align1024(smem_raw));
+  SmemDkv<D>& sm = *reinterpret_cast<SmemDkv<D>*>(align1024(smem_raw));
   const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV, group = H / KV;
   const int k0 = blockIdx.y * (NCONS * BT);  // under the causal mask the first key blocks see the most
   const int n_q = (S + BT - 1) / BT;
@@ -285,46 +370,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
   init_barriers(sm.full, sm.empty, &sm.own);
 
   if (wg == NCONS) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    if (threadIdx.x / 32 % 4 == 0) {
-      load_own(sm.k, sm.v, &map_k, &map_v, kvh, k0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % NSTAGE;
-        const int g = t / (n_q - qi0), q0 = (qi0 + t % (n_q - qi0)) * BT;
-        const int h = kvh * group + g;
-        const float* lrow = lse + (size_t)(b * H + h) * S;
-        const float* drow = delta + (size_t)(b * H + h) * S;
-        const int r0 = q0 + lane, r1 = r0 + 32;
-        // Row state first, so its load latency overlaps the wait.
-        const float l0 = r0 < S ? lrow[r0] * LOG2E : 0.f, l1 = r1 < S ? lrow[r1] * LOG2E : 0.f;
-        const float d0 = r0 < S ? drow[r0] : 0.f, d1 = r1 < S ? drow[r1] : 0.f;
-        const int s0 = segb && r0 < S ? segb[r0] : 0, s1 = segb && r1 < S ? segb[r1] : 0;
-        mbar_wait(&sm.empty[s], ((t / NSTAGE) & 1) ^ 1);
-        sm.lse[s][lane] = l0;
-        sm.lse[s][lane + 32] = l1;
-        sm.delta[s][lane] = d0;
-        sm.delta[s][lane + 32] = d1;
-        if (segb) {
-          int lo, hi;
-          warp_range(s0, r0 < S, s1, r1 < S, lo, hi);
-          sm.seg_q[s][lane] = s0;
-          sm.seg_q[s][lane + 32] = s1;
-          if (lane == 0) {
-            sm.seg_lo[s] = lo;
-            sm.seg_hi[s] = hi;
-          }
-        }
-        if (lane == 0) {
-          mbar_arrive_tx(&sm.full[s], 2 * TILE_BYTES);
-          tma_load(sm.q[s], &map_q, &sm.full[s], h, q0, b);
-          tma_load(sm.dout[s], &map_do, &sm.full[s], h, q0, b);
-        } else {
-          mbar_arrive(&sm.full[s]);
-        }
+    if constexpr (D == 64) {  // D-128 blocks have no third warpgroup
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+      if (threadIdx.x / 32 % 4 == 0) {
+        load_own<D>(sm.k, sm.v, &map_k, &map_v, kvh, k0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
+        for (int t = 0; t < n_tiles; ++t)
+          dkv_produce(sm, t, &map_q, &map_do, lse, delta, segb, b, kvh, group, H, S, n_q, qi0, lane);
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    if constexpr (D == 64) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    } else if (threadIdx.x < 32) {  // warp 0 also produces: the own tiles and the first NSTAGE ring tiles
+      load_own<D>(sm.k, sm.v, &map_k, &map_v, kvh, k0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
+      for (int t = 0; t < min(NSTAGE, n_tiles); ++t)
+        dkv_produce(sm, t, &map_q, &map_do, lse, delta, segb, b, kvh, group, H, S, n_q, qi0, lane);
+    }
     const int warp = (threadIdx.x / 32) % 4;
     const int k0w = k0 + wg * BT;  // this consumer's 64 keys
     const int key_a = k0w + warp * 16 + lane / 4;
@@ -336,9 +397,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
     }
     const float scale_log2 = scale * LOG2E;
 
-    float acc_dk[32], acc_dv[32];
+    float acc_dk[NP][32], acc_dv[NP][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_dk[p][i] = acc_dv[p][i] = 0.f;
 
     mbar_wait(&sm.own, 0);
     const int own_lo = sm.own_lo[wg], own_hi = sm.own_hi[wg];
@@ -355,9 +418,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
         uint32_t a_p[4][4], a_ds[4][4];
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc_s, dsc_k + kk * KMAJOR_STEP, dsc_q + kk * KMAJOR_STEP, kk);
+        for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_s, dsc_k + kstep(kk), dsc_q + kstep(kk), kk);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc_dp, dsc_v + kk * KMAJOR_STEP, dsc_do + kk * KMAJOR_STEP, kk);
+        for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_dp, dsc_v + kstep(kk), dsc_do + kstep(kk), kk);
         wg_commit();
         wg_wait_all();
         reg_fence(acc_s);
@@ -376,9 +439,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
         acc_to_a(acc_dp, a_ds);  // dS^T, bf16
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dv, a_p[kk], dsc_do + kk * MNMAJOR_STEP);  // dV += P^T dO
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_panels(acc_dv, a_p[kk], dsc_do, kk);  // dV += P^T dO
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dk, a_ds[kk], dsc_q + kk * MNMAJOR_STEP);  // dK += dS^T Q
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_panels(acc_dk, a_ds[kk], dsc_q, kk);  // dK += dS^T Q
         wg_commit();
         wg_wait_all();
         reg_fence(acc_dv);
@@ -389,20 +452,51 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[s]);
       __syncwarp();
+      // D 128: warp 0 refills this stage with tile t + NSTAGE once every
+      // consumer warp has released it.
+      if (D != 64 && threadIdx.x < 32 && t + NSTAGE < n_tiles)
+        dkv_produce(sm, t + NSTAGE, &map_q, &map_do, lse, delta, segb, b, kvh, group, H, S, n_q, qi0, lane);
     }
     const size_t out = ((size_t)b * S * KV + kvh) * D;
-    store_rows(acc_dk, dk + out, (size_t)KV * D, key_a, S, lane);
-    store_rows(acc_dv, dv + out, (size_t)KV * D, key_a, S, lane);
+    store_panels(acc_dk, dk + out, (size_t)KV * D, key_a, S, lane);
+    store_panels(acc_dv, dv + out, (size_t)KV * D, key_a, S, lane);
   }
 }
+
 
 // ------------------------------------------------------------------- host
 
 // The four maps of one launch, or false.
 bool make_maps(CUtensorMap (&m)[4], const void* q, const void* dout, const void* k, const void* v, int B, int S,
-               int H, int KV) {
-  return make_map(&m[0], q, B, S, H) && make_map(&m[1], dout, B, S, H) && make_map(&m[2], k, B, S, KV) &&
-         make_map(&m[3], v, B, S, KV);
+               int H, int KV, int D) {
+  return make_map(&m[0], q, B, S, H, D) && make_map(&m[1], dout, B, S, H, D) && make_map(&m[2], k, B, S, KV, D) &&
+         make_map(&m[3], v, B, S, KV, D);
+}
+
+template <int D>
+int launch_dq(const CUtensorMap (&m)[4], const void* lse, const void* delta, const void* seg, void* dq, int B, int S,
+              int H, int KV, int causal, float scale, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(SmemDq<D>)) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * H, (S + NCONS * BT - 1) / (NCONS * BT));
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<bf16*>(dq), S, H, KV, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const CUtensorMap (&m)[4], const void* lse, const void* delta, const void* seg, void* dk, void* dv,
+               int B, int S, int H, int KV, int causal, float scale, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(SmemDkv<D>)) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * KV, (S + NCONS * BT - 1) / (NCONS * BT));
+  flash_bwd_dkv_kernel<D><<<grid, dkv_threads<D>(), smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -418,15 +512,10 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
                                  void* stream) {
   if (bad_args(B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
-  if (!make_maps(m, q, dout, k, v, B, S, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(SmemDq)) + 1024;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (S + NCONS * BT - 1) / (NCONS * BT));
-  flash_bwd_dq_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<bf16*>(dq), S, H, KV, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!make_maps(m, q, dout, k, v, B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? launch_dq<64>(m, lse, delta, seg, dq, B, S, H, KV, causal, scale, st)
+                        : launch_dq<128>(m, lse, delta, seg, dq, B, S, H, KV, causal, scale, st);
 }
 
 // K2. Returns cudaGetLastError() after the launch (0 = launched).
@@ -436,13 +525,8 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   float scale, void* stream) {
   if (bad_args(B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
-  if (!make_maps(m, q, dout, k, v, B, S, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(SmemDkv)) + 1024;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * KV, (S + NCONS * BT - 1) / (NCONS * BT));
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!make_maps(m, q, dout, k, v, B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? launch_dkv<64>(m, lse, delta, seg, dk, dv, B, S, H, KV, causal, scale, st)
+                        : launch_dkv<128>(m, lse, delta, seg, dk, dv, B, S, H, KV, causal, scale, st);
 }

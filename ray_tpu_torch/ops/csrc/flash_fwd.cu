@@ -10,12 +10,14 @@
 // wrapper fell back to its reference path for that case instead.
 //
 // What bounds it on an H100: operations. Causal attention does 4 * D FLOPs
-// per valid (q, k) pair and head (Q K^T and P V): at the training shape
-// (B 16, S 2048, H 16, KV 4, D 64) 137 GFLOP against 0.02 GB of inputs and
-// outputs, far above the card's ~295 FLOP/byte ridge. Next to the products
-// it does one exp per pair, on the special-function unit, whose rate is
-// about a quarter of the tensor cores' at D 64: the softmax must overlap the
-// products of the other warpgroup to keep them busy.
+// per valid (q, k) pair and head (Q K^T and P V): at the 250M model's
+// training shape (B 16, S 2048, H 16, KV 4, D 64) 137 GFLOP against 0.02 GB
+// of inputs and outputs, at the 7B model's (B 8, S 4096, H 32, KV 8, D 128)
+// 1.1 TFLOP, both far above the card's ~295 FLOP/byte ridge. Next to the
+// products it does one exp per pair, on the special-function unit, whose
+// rate is about a quarter of the tensor cores' at D 64 (half that share at
+// D 128): the softmax must overlap the products of the other warpgroup to
+// keep them busy.
 //
 // What this design does about it (the design of K3 in flash_bwd.cu, with
 // one product fewer):
@@ -32,6 +34,16 @@
 //   block's two Q tiles come once; K/V tiles of 64 keys, with their segment
 //   ids and segment range, through a 3-stage ring of full/empty mbarriers
 //   fed by one producer warp.
+// - Head dim D is a template parameter, instantiated at 64 and 128. A tile
+//   is D / 64 panels of 64 columns (8 KB each, one TMA box each; the 128-byte
+//   swizzle spans one 64-wide bf16 row, so a 128-wide row must be split).
+//   S = Q K^T takes D / 16 K-major k16 steps, steps 4-7 in the second panel.
+//   O += P V, whose N is D, is issued as one m64n64k16 per panel per k16
+//   step, each reading its panel of V MN-major with the D-64 descriptor:
+//   the same descriptor arithmetic as D 64, where one m64n128k16 would need a
+//   leading-byte offset across two swizzle atoms that nothing else here
+//   uses. O is D / 64 accumulators of 32 fp32 per thread. At D 128 the block
+//   holds 2 Q tiles (32 KB) and a 3-stage K/V ring (96 KB).
 // - Three warpgroups per block: two consumers, each owning 64 of the
 //   block's 128 Q rows and sharing every K/V tile, and the producer
 //   warpgroup, which gives its registers to the consumers with setmaxnreg
@@ -52,7 +64,7 @@
 //
 // Layout at the interface: q/o [B, S, H, D], k/v [B, S, KV, D] (row-major,
 // contiguous, 16-byte aligned), seg [B, S] int32 or null, lse [B*H, S] fp32.
-// D must be 64. Helpers shared with K3/K2 live in sm90.cuh.
+// D must be 64 or 128. Helpers shared with K3/K2 live in sm90.cuh.
 
 #include <math.h>
 
@@ -64,12 +76,14 @@ using namespace sm90;
 
 constexpr float LN2 = 0.6931471805599453f;
 
-// Ring tiles first: every tile sits at a multiple of 8 KB from a 1024-byte
-// aligned base, as the 128-byte swizzle needs.
+// Tiles first: every tile (BT x D bf16, 8 KB per panel) and so every panel
+// sits at a multiple of 8 KB from a 1024-byte aligned base, as the 128-byte
+// swizzle needs.
+template <int D>
 struct SmemFwd {
-  bf16 q[NCONS][TILE];
-  bf16 k[NSTAGE][TILE];
-  bf16 v[NSTAGE][TILE];
+  bf16 q[NCONS][BT * D];
+  bf16 k[NSTAGE][BT * D];
+  bf16 v[NSTAGE][BT * D];
   int seg_k[NSTAGE][BT];
   int seg_lo[NSTAGE], seg_hi[NSTAGE];  // over the tile's keys inside S
   int own_lo[NCONS], own_hi[NCONS];    // over each consumer's rows inside S
@@ -128,7 +142,8 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], RowState& r, const
 
 // The softmax step on ring tile t, through the MASKED instance where the
 // tile holds the diagonal, the ragged tail or a segment boundary.
-__device__ __forceinline__ void softmax_tile(float (&sc)[32], RowState& r, const SmemFwd& sm, const int* segb, int t,
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], RowState& r, const SmemFwd<D>& sm, const int* segb, int t,
                                              int q0w, int own_lo, int own_hi, int S, int causal, int lane,
                                              float scale_log2, float (&alpha)[2]) {
   const int s = t % NSTAGE, k0 = t * BT;
@@ -148,12 +163,14 @@ __device__ __forceinline__ void release(uint64_t* empty, int t, int lane) {
   __syncwarp();
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg, bf16* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int KV, int causal, float scale) {
+  constexpr int NP = D / PANEL_COLS, KSTEPS = D / 16;
   extern __shared__ unsigned char smem_raw[];
-  SmemFwd& sm = *reinterpret_cast<SmemFwd*>(align1024(smem_raw));
+  SmemFwd<D>& sm = *reinterpret_cast<SmemFwd<D>*>(align1024(smem_raw));
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * (NCONS * BT);  // heaviest causal blocks first
   int n_tiles = (S + BT - 1) / BT;
@@ -167,7 +184,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     // their registers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     if (threadIdx.x / 32 % 4 == 0) {
-      load_own(sm.q, nullptr, &map_q, nullptr, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
+      load_own<D>(sm.q, nullptr, &map_q, nullptr, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % NSTAGE, k0 = t * BT;
         int sk0 = 0, sk1 = 0;
@@ -187,9 +204,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
           }
         }
         if (lane == 0) {
-          mbar_arrive_tx(&sm.full[s], 2 * TILE_BYTES);
-          tma_load(sm.k[s], &map_k, &sm.full[s], kvh, k0, b);
-          tma_load(sm.v[s], &map_v, &sm.full[s], kvh, k0, b);
+          mbar_arrive_tx(&sm.full[s], 2 * BT * D * 2);
+          tma_tile<D>(sm.k[s], &map_k, &sm.full[s], kvh, k0, b);
+          tma_tile<D>(sm.v[s], &map_v, &sm.full[s], kvh, k0, b);
         } else {
           mbar_arrive(&sm.full[s]);
         }
@@ -212,9 +229,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     }
     const float scale_log2 = scale * LOG2E;
 
-    float acc_o[32];
+    float acc_o[NP][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc_o[i] = 0.f;
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_o[p][i] = 0.f;
 
     mbar_wait(&sm.own, 0);
     const int own_lo = sm.own_lo[wg], own_hi = sm.own_hi[wg];
@@ -232,7 +251,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       const uint64_t dsc_k = desc_sw128(sm.k[0]);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc_s, dsc_q + kk * KMAJOR_STEP, dsc_k + kk * KMAJOR_STEP, kk);
+      for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_s, dsc_q + kstep(kk), dsc_k + kstep(kk), kk);
       wg_commit();
       wg_wait_all();
       reg_fence(acc_s);
@@ -245,10 +264,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       const uint64_t dsc_k = desc_sw128(sm.k[t % NSTAGE]), dsc_v = desc_sw128(sm.v[(t - 1) % NSTAGE]);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc_s, dsc_q + kk * KMAJOR_STEP, dsc_k + kk * KMAJOR_STEP, kk);
+      for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_s, dsc_q + kstep(kk), dsc_k + kstep(kk), kk);
       wg_commit();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_o, a_p[kk], dsc_v + kk * MNMAJOR_STEP);  // O += P V, tile t - 1
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_panels(acc_o, a_p[kk], dsc_v, kk);  // O += P V, tile t - 1
       wg_commit();
       reg_fence(acc_o);
       wg_wait<1>();  // S of tile t is in; P V may still run
@@ -259,14 +278,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       reg_fence(a_p);
       release(sm.empty, t - 1, lane);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc_o[p][i] *= alpha[(i >> 1) & 1];
       acc_to_a(acc_s, a_p);
     }
     {
       const uint64_t dsc_v = desc_sw128(sm.v[(n_mine - 1) % NSTAGE]);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_o, a_p[kk], dsc_v + kk * MNMAJOR_STEP);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_panels(acc_o, a_p[kk], dsc_v, kk);
       wg_commit();
       wg_wait_all();
       reg_fence(acc_o);
@@ -288,7 +309,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       inv[h2] = l > 0.f ? 1.f / l : 0.f;
       lse_row[h2] = l > 0.f ? (rows.m[h2] + log2f(l)) * LN2 : -1e30f;
     }
-    store_rows(acc_o, o + ((size_t)b * S * H + h) * D, (size_t)H * D, row_a, S, lane, inv[0], inv[1]);
+    store_panels(acc_o, o + ((size_t)b * S * H + h) * D, (size_t)H * D, row_a, S, lane, inv[0], inv[1]);
     if ((lane & 3) == 0) {
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
@@ -296,6 +317,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       }
     }
   }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B, int S, int H,
+           int KV, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap m[3];
+  if (!(make_map(&m[0], q, B, S, H, D) && make_map(&m[1], k, B, S, KV, D) && make_map(&m[2], v, B, S, KV, D))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = static_cast<int>(sizeof(SmemFwd<D>)) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * H, (S + NCONS * BT - 1) / (NCONS * BT));
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], static_cast<const int*>(seg),
+                                                         static_cast<bf16*>(o), static_cast<float*>(lse), S, H, KV,
+                                                         causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -309,16 +347,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
                               void* o, void* lse, int B, int S, int H, int KV, int head_dim,
                               int causal, float scale, void* stream) {
   if (bad_args(B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap m[3];
-  if (!(make_map(&m[0], q, B, S, H) && make_map(&m[1], k, B, S, KV) && make_map(&m[2], v, B, S, KV))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = static_cast<int>(sizeof(SmemFwd)) + 1024;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (S + NCONS * BT - 1) / (NCONS * BT));
-  flash_fwd_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      m[0], m[1], m[2], static_cast<const int*>(seg), static_cast<bf16*>(o), static_cast<float*>(lse), S, H, KV,
-      causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? launch<64>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st)
+                        : launch<128>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
 }

@@ -7,9 +7,13 @@
 //
 // Everything is in namespace sm90; each kernel source is compiled on its own
 // (one nvcc per .cu), so nothing here is shared at link time. The flash
-// kernels use the constants below: D 64 (one 128-byte bf16 row), 64-row
-// tiles (the wgmma M), two consumer warpgroups and one producer warpgroup per
-// block, a ring of NSTAGE stages.
+// kernels use the constants below: 64-row tiles (the wgmma M), two consumer
+// warpgroups and (but in K2 at D 128) one producer warpgroup per block, a
+// ring of NSTAGE stages.
+// The head dim D is a template parameter of each flash kernel (64 or 128).
+// A 64-row tile of D columns is stored as D / 64 panels of 64 columns, each
+// panel 8 KB: one 128-byte bf16 row per tile row, the span of the 128-byte
+// swizzle, loaded by its own TMA box and read by its own wgmma descriptors.
 
 #pragma once
 
@@ -23,13 +27,13 @@ namespace sm90 {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 64;                  // head dim: one 128-byte bf16 row
 constexpr int BT = 64;                 // rows per tile: the wgmma M
 constexpr int NCONS = 2;               // consumer warpgroups per block
 constexpr int NTHREADS = (NCONS + 1) * 128;
 constexpr int NSTAGE = 3;              // ring depth
-constexpr int TILE = BT * D;           // bf16 elements per tile
-constexpr uint32_t TILE_BYTES = TILE * 2;
+constexpr int PANEL_COLS = 64;         // columns of one panel: one 128-byte bf16 row
+constexpr int PANEL = BT * PANEL_COLS; // bf16 elements per panel (8 KB)
+constexpr uint32_t PANEL_BYTES = PANEL * 2;
 constexpr int CONS_WARPS = NCONS * 4;  // arrivals that release a ring stage
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -74,14 +78,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---------------------------------------------------------------- TMA
 
-// One 64-row box of a [B, S, heads, D] tensor map into shared memory.
-__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, uint64_t* bar, int head, int row,
-                                         int b) {
+// One box (64 columns from `col`, 64 rows) of a [B, S, heads, D] tensor map
+// into shared memory.
+__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, uint64_t* bar, int col, int head,
+                                         int row, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(head), "r"(row), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(b)
       : "memory");
+}
+
+// A whole 64-row tile of D columns: one box per 64-column panel, panel p at
+// dst + p * PANEL. The barrier's expect_tx counts BT * D * 2 bytes for it.
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int head, int row,
+                                         int b) {
+#pragma unroll
+  for (int p = 0; p < D / PANEL_COLS; ++p) tma_load(dst + p * PANEL, map, bar, p * PANEL_COLS, head, row, b);
 }
 
 // `bytes` contiguous bytes from device memory into shared memory (both
@@ -96,16 +110,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 // ---------------------------------------------------------------- wgmma
 
-// wgmma shared-memory descriptor of a 64 x 64 bf16 tile written by TMA with
-// the 128-byte swizzle: rows 128 B apart, 8-row groups 1024 B apart (SBO),
-// LBO unused (1), layout type 1 = 128-byte swizzle. The same descriptor
-// serves K-major reads (advance 32 B per k16 step along the row) and
-// MN-major reads (advance 16 rows = 2048 B per k16 step).
+// wgmma shared-memory descriptor of a 64 x 64 bf16 panel written by TMA
+// with the 128-byte swizzle: rows 128 B apart, 8-row groups 1024 B apart
+// (SBO), LBO unused (1), layout type 1 = 128-byte swizzle. The same
+// descriptor serves K-major reads (advance 32 B per k16 step along the row)
+// and MN-major reads (advance 16 rows = 2048 B per k16 step). A tile's panel
+// p is PANEL_STEP descriptor units past its panel 0.
 __device__ __forceinline__ uint64_t desc_sw128(const bf16* tile) {
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 constexpr uint64_t KMAJOR_STEP = 32 >> 4;    // descriptor units per k16 step, K-major
 constexpr uint64_t MNMAJOR_STEP = 2048 >> 4;  // the same, MN-major
+constexpr uint64_t PANEL_STEP = PANEL_BYTES >> 4;  // descriptor units per panel
+
+// Descriptor offset of K-major k16 step kk over a tile's D columns: steps
+// 0-3 in panel 0, 4-7 in panel 1, 32 B apart within a panel.
+__host__ __device__ constexpr uint64_t kstep(int kk) { return (kk / 4) * PANEL_STEP + (kk % 4) * KMAJOR_STEP; }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
@@ -121,6 +141,11 @@ __device__ __forceinline__ void wg_wait() {
 __device__ __forceinline__ void reg_fence(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N][32]) {
+#pragma unroll
+  for (int p = 0; p < N; ++p) reg_fence(d[p]);
 }
 __device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -160,6 +185,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[p] += A B_p for one k16 step kk of a product whose N is D, one
+// m64n64k16 per 64-column panel p of B (MN-major, transpose bit).
+template <int NP>
+__device__ __forceinline__ void wgmma_rs_panels(float (&d)[NP][32], const uint32_t (&a)[4], uint64_t db, int kk) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) wgmma_rs(d[p], a, db + p * PANEL_STEP + kk * MNMAJOR_STEP);
+}
+
 // ---------------------------------------------------------------- registers
 
 __device__ __forceinline__ float ex2(float x) {
@@ -186,9 +219,10 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// Writes a consumer's 64 rows of acc as bf16 into a [.., S, heads, D] tensor
-// (row stride `rs` elements), rows at or past S skipped. s0 and s1 multiply
-// the thread's two rows (row_a and row_a + 8).
+// Writes a consumer's 64 rows of acc (64 columns) as bf16 into a
+// [.., S, heads, D] tensor from `base` (row stride `rs` elements), rows at or
+// past S skipped. s0 and s1 multiply the thread's two rows (row_a and
+// row_a + 8).
 __device__ __forceinline__ void store_rows(const float (&acc)[32], bf16* base, size_t rs, int row_a, int S,
                                           int lane, float s0 = 1.f, float s1 = 1.f) {
 #pragma unroll
@@ -207,6 +241,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[32], bf16* base, s
   }
 }
 
+// store_rows over all D / 64 panels of an accumulator whose N is D.
+template <int NP>
+__device__ __forceinline__ void store_panels(const float (&acc)[NP][32], bf16* base, size_t rs, int row_a, int S,
+                                             int lane, float s0 = 1.f, float s1 = 1.f) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) store_rows(acc[p], base + p * PANEL_COLS, rs, row_a, S, lane, s0, s1);
+}
+
 // Min and max of the warp's valid values (INT_MAX / INT_MIN when none).
 __device__ __forceinline__ void warp_range(int v0, bool ok0, int v1, bool ok1, int& lo, int& hi) {
   lo = min(ok0 ? v0 : INT_MAX, ok1 ? v1 : INT_MAX);
@@ -223,7 +265,8 @@ __device__ __forceinline__ void warp_range(int v0, bool ok0, int v1, bool ok1, i
 // The producer's own-tile step: segment ranges of each consumer's 64 rows
 // (starting at r0), then TMA of one or two maps' tiles (mb null: one) for
 // both consumers, all on the `own` barrier (32 arrivals + the bytes).
-__device__ __forceinline__ void load_own(bf16 (*a)[TILE], bf16 (*b)[TILE], const CUtensorMap* ma,
+template <int D>
+__device__ __forceinline__ void load_own(bf16 (*a)[BT * D], bf16 (*b)[BT * D], const CUtensorMap* ma,
                                          const CUtensorMap* mb, int head, int r0, int bidx, const int* segb,
                                          int S, int* own_lo, int* own_hi, uint64_t* bar, int lane) {
   for (int w = 0; w < NCONS; ++w) {
@@ -238,10 +281,10 @@ __device__ __forceinline__ void load_own(bf16 (*a)[TILE], bf16 (*b)[TILE], const
     }
   }
   if (lane == 0) {
-    mbar_arrive_tx(bar, (mb ? 2 : 1) * NCONS * TILE_BYTES);
+    mbar_arrive_tx(bar, (mb ? 2 : 1) * NCONS * BT * D * 2);
     for (int w = 0; w < NCONS; ++w) {
-      tma_load(a[w], ma, bar, head, r0 + w * BT, bidx);
-      if (mb) tma_load(b[w], mb, bar, head, r0 + w * BT, bidx);
+      tma_tile<D>(a[w], ma, bar, head, r0 + w * BT, bidx);
+      if (mb) tma_tile<D>(b[w], mb, bar, head, r0 + w * BT, bidx);
     }
   } else {
     mbar_arrive(bar);
@@ -287,23 +330,24 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-D map over a contiguous [B, S, heads, D] bf16 tensor: box (D, 1 head,
-// 64 rows, 1), 128-byte swizzle, zero fill past S.
-inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
+// A 4-D map over a contiguous [B, S, heads, D] bf16 tensor: box (64
+// columns, 1 head, 64 rows, 1), one panel, 128-byte swizzle (the box's inner
+// 128 bytes are the swizzle's span), zero fill past S.
+inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2, (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)BT, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)PANEL_COLS, 1, (cuuint32_t)BT, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The flash kernels' shared argument check (D 64, H a multiple of KV).
+// The flash kernels' shared argument check (D 64 or 128, H a multiple of KV).
 inline bool bad_args(int B, int S, int H, int KV, int head_dim) {
-  return head_dim != D || B <= 0 || S <= 0 || KV <= 0 || H % KV != 0;
+  return (head_dim != 64 && head_dim != 128) || B <= 0 || S <= 0 || KV <= 0 || H % KV != 0;
 }
 
 }  // namespace sm90

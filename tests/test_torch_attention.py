@@ -4,8 +4,11 @@ kernel (interpret mode on the CPU): the same numpy inputs through both.
 On the CPU the port's ``flash_attention`` runs its plain version
 (``mha_reference``); kernel K1 itself runs only on the GPU, where
 ``chip_smoke.py`` and ``test_torch_cuda_kernels.py`` hold it against this
-plain version. Tolerance: fp32 on both sides, only the summation order
-differs (blockwise online softmax vs one softmax), so 2e-5.
+plain version. Each test runs at head dim 64 and 128, the two head dims
+the kernels are built for (at 128 over S 128 or 200, one or two of the JAX
+kernel's 128-row blocks, to keep interpret mode quick). Tolerance: fp32 on
+both sides, only the summation order differs (blockwise online softmax vs
+one softmax), so 2e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,11 +18,14 @@ import torch
 from ray_tpu.ops import attention as jatt
 from ray_tpu_torch.ops import attention as tatt
 
-D = 64
 TOL = dict(atol=2e-5, rtol=2e-5)
+# (H, KV, D, S): the D-64 cases keep their ids.
+HEADS = [pytest.param(4, 4, 64, 256, id="4-4"), pytest.param(4, 2, 64, 256, id="4-2"),
+         pytest.param(8, 2, 64, 256, id="8-2"), pytest.param(4, 4, 128, 128, id="4-4-d128"),
+         pytest.param(4, 2, 128, 256, id="4-2-d128"), pytest.param(8, 2, 128, 128, id="8-2-d128")]
 
 
-def _case(B, S, H, KV, seed):
+def _case(B, S, H, KV, seed, D=64):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, S, H, D)).astype(np.float32)
     k = rng.normal(size=(B, S, KV, D)).astype(np.float32)
@@ -36,9 +42,9 @@ def _t(a):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (8, 2)])
-def test_flash_matches_jax_kernel(causal, H, KV):
-    q, k, v, seg = _case(1, 256, H, KV, seed=H * 10 + KV)
+@pytest.mark.parametrize("H,KV,D,S", HEADS)
+def test_flash_matches_jax_kernel(causal, H, KV, D, S):
+    q, k, v, seg = _case(1, S, H, KV, seed=H * 10 + KV, D=D)
     want = jatt.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         segment_ids=jnp.asarray(seg), block_q=128, block_k=128, interpret=True,
@@ -47,10 +53,11 @@ def test_flash_matches_jax_kernel(causal, H, KV):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_flash_lse_matches_jax_kernel():
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_lse_matches_jax_kernel(D):
     """The per-row log-sum-exp the kernel writes (for the later backward)."""
     H, KV, S = 4, 2, 256
-    q, k, v, seg = _case(2, S, H, KV, seed=7)
+    q, k, v, seg = _case(2, S, H, KV, seed=7, D=D)
     fold = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(-1, S, D)  # noqa: E731
     seg8 = jnp.broadcast_to(jnp.asarray(seg)[:, None, :], (2, 8, S))
     _, want = jatt._fwd_pallas(
@@ -61,10 +68,11 @@ def test_flash_lse_matches_jax_kernel():
     np.testing.assert_allclose(got.reshape(2 * H, S).numpy(), np.asarray(want)[:, 0, :], **TOL)
 
 
-def test_flash_ragged_length_matches_reference():
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_ragged_length_matches_reference(D):
     """S not a multiple of 128: the JAX wrapper falls back to its reference;
     the port's kernel masks the ragged tail itself (same function)."""
-    q, k, v, seg = _case(2, 200, 8, 2, seed=3)
+    q, k, v, seg = _case(2, 200, 8, 2, seed=3, D=D)
     want = jatt.mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
                               segment_ids=jnp.asarray(seg))
     got = tatt.flash_attention(_t(q), _t(k), _t(v), causal=True, segment_ids=_t(seg))

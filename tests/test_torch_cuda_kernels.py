@@ -6,7 +6,8 @@ at the serving and training shapes, plus the engine and the training step
 end to end. Tolerances: bf16 output against an fp32 plain version on the
 same bf16 inputs, 2e-2 (bf16 ulp is 2^-8 relative); LSE in fp32, 1e-3. K1
 and K3/K2 run over GQA, MHA and MQA, pad and packed segments, ragged S and
-S under one tile, causal and not; K4 over page sizes, groups 1-8, head dims,
+S under one tile, causal and not, at head dims 64 and 128 (the two
+instances of each kernel, behind one wrapper); K4 over page sizes, groups 1-8, head dims,
 B 1 (one sequence split over many blocks) and ragged batches with lengths 0,
 1, a page multiple and the full table. Each kernel gives the same bits on
 a second launch; K4's ticket counters are back at 0 after every call. The
@@ -37,15 +38,15 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _qkv(dev, B, S, H, KV, seed, segs="pad"):
+def _qkv(dev, B, S, H, KV, seed, segs="pad", D=64):
     """Inputs of the backward. segs "pad": a pad segment at the end of each
     row (7 more tokens per row); "packed": three packed segments per row,
     boundaries at other places in each row."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, S, H, 64, device=dev, generator=g).bfloat16()
-    k = torch.randn(B, S, KV, 64, device=dev, generator=g).bfloat16()
-    v = torch.randn(B, S, KV, 64, device=dev, generator=g).bfloat16()
-    do = torch.randn(B, S, H, 64, device=dev, generator=g).bfloat16()
+    q = torch.randn(B, S, H, D, device=dev, generator=g).bfloat16()
+    k = torch.randn(B, S, KV, D, device=dev, generator=g).bfloat16()
+    v = torch.randn(B, S, KV, D, device=dev, generator=g).bfloat16()
+    do = torch.randn(B, S, H, D, device=dev, generator=g).bfloat16()
     pos = torch.arange(S, device=dev)[None]
     if segs == "packed":
         cuts = torch.tensor([[S // 3 + 5 * i, 2 * S // 3 - 11 * i] for i in range(B)], device=dev)
@@ -61,19 +62,24 @@ def _close(got, want):
     return err <= 2e-2 * want.abs().max().item() + 2e-2, err
 
 
-# (B, S, H, KV, segments) of K1: GQA, MHA and MQA (H 8, KV 1); a pad
+# (B, S, H, KV, segments, D) of K1: GQA, MHA and MQA (H 8, KV 1); a pad
 # segment or three packed segments per row; S a multiple of the 128-row
-# block, ragged (333, 700, 1000), exactly one tile (64) and under one (33).
-FWD_CASES = [(1, 128, 4, 4, "pad"), (2, 1000, 16, 4, "pad"), (3, 333, 8, 2, "pad"), (2, 512, 8, 1, "pad"),
-             (2, 700, 16, 4, "packed"), (1, 64, 4, 2, "pad"), (2, 33, 8, 2, "pad")]
+# block, ragged (333, 700, 1000), exactly one tile (64) and under one (33);
+# head dim 64 and, at Mistral-7B's heads (32, 8) among others, 128.
+FWD_CASES = [(1, 128, 4, 4, "pad", 64), (2, 1000, 16, 4, "pad", 64), (3, 333, 8, 2, "pad", 64),
+             (2, 512, 8, 1, "pad", 64), (2, 700, 16, 4, "packed", 64), (1, 64, 4, 2, "pad", 64),
+             (2, 33, 8, 2, "pad", 64),
+             (1, 128, 4, 4, "pad", 128), (2, 1000, 32, 8, "pad", 128), (3, 333, 8, 2, "pad", 128),
+             (2, 512, 8, 1, "pad", 128), (2, 700, 32, 8, "packed", 128), (1, 64, 4, 2, "pad", 128),
+             (2, 33, 8, 2, "pad", 128)]
 
 
-@pytest.mark.parametrize("B,S,H,KV,segs", FWD_CASES)
+@pytest.mark.parametrize("B,S,H,KV,segs,D", FWD_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_matches_plain(dev, B, S, H, KV, segs, causal):
+def test_flash_kernel_matches_plain(dev, B, S, H, KV, segs, D, causal):
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, _, seg = _qkv(dev, B, S, H, KV, seed=B * S, segs=segs)
+    q, k, v, _, seg = _qkv(dev, B, S, H, KV, seed=B * S, segs=segs, D=D)
     before = att.LAUNCHES
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     torch.cuda.synchronize()
@@ -85,30 +91,35 @@ def test_flash_kernel_matches_plain(dev, B, S, H, KV, segs, causal):
     assert (lse - lse_ref.reshape(B * H, S)).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_is_deterministic(dev, causal):
+def test_flash_kernel_is_deterministic(dev, causal, D):
     """K1 has no atomics: two launches on the same inputs give the same bits."""
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, _, seg = _qkv(dev, 2, 1000, 16, 4, seed=5, segs="packed")
+    q, k, v, _, seg = _qkv(dev, 2, 1000, 16, 4, seed=5, segs="packed", D=D)
     (o1, l1), (o2, l2) = (att.flash_fwd(q, k, v, segment_ids=seg, causal=causal) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
-# (B, S, H, KV, segments): GQA, MHA and MQA (H 8, KV 1); a pad segment or
-# three packed segments per row; S a multiple of the 64-row tile, ragged
-# (333, 1000, 33 < one tile) and exactly one tile (64).
-BWD_CASES = [(1, 128, 4, 4, "pad"), (2, 1000, 16, 4, "pad"), (3, 333, 8, 2, "pad"), (2, 512, 8, 1, "pad"),
-             (2, 700, 16, 4, "packed"), (1, 64, 4, 2, "pad"), (2, 33, 8, 2, "pad")]
+# (B, S, H, KV, segments, D): GQA, MHA and MQA (H 8, KV 1); a pad segment
+# or three packed segments per row; S a multiple of the 64-row tile, ragged
+# (333, 1000, 33 < one tile) and exactly one tile (64); head dim 64 and 128.
+BWD_CASES = [(1, 128, 4, 4, "pad", 64), (2, 1000, 16, 4, "pad", 64), (3, 333, 8, 2, "pad", 64),
+             (2, 512, 8, 1, "pad", 64), (2, 700, 16, 4, "packed", 64), (1, 64, 4, 2, "pad", 64),
+             (2, 33, 8, 2, "pad", 64),
+             (1, 128, 4, 4, "pad", 128), (2, 1000, 32, 8, "pad", 128), (3, 333, 8, 2, "pad", 128),
+             (2, 512, 8, 1, "pad", 128), (2, 700, 32, 8, "packed", 128), (1, 64, 4, 2, "pad", 128),
+             (2, 33, 8, 2, "pad", 128)]
 
 
-@pytest.mark.parametrize("B,S,H,KV,segs", BWD_CASES)
+@pytest.mark.parametrize("B,S,H,KV,segs,D", BWD_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, segs, causal):
+def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, segs, D, causal):
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, do, seg = _qkv(dev, B, S, H, KV, seed=B * S + causal, segs=segs)
+    q, k, v, do, seg = _qkv(dev, B, S, H, KV, seed=B * S + causal, segs=segs, D=D)
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     before = (att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
     grads = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg, causal=causal)
@@ -122,13 +133,14 @@ def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, segs, causal):
         assert ok, (name, err)
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("segs", ["pad", "packed"])
-def test_flash_bwd_kernels_are_deterministic(dev, segs):
+def test_flash_bwd_kernels_are_deterministic(dev, segs, D):
     """K3 and K2 sum in a fixed order (no atomics): two launches on the same
     inputs give the same bits."""
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, do, seg = _qkv(dev, 2, 1000, 16, 4, seed=11, segs=segs)
+    q, k, v, do, seg = _qkv(dev, 2, 1000, 16, 4, seed=11, segs=segs, D=D)
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous().view(-1, 1000)
     runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, seg), *att.flash_bwd_dkv(q, k, v, do, lse, delta, seg))
@@ -138,10 +150,11 @@ def test_flash_bwd_kernels_are_deterministic(dev, segs):
         assert torch.equal(a, b), name
 
 
-def test_flash_attention_autograd_runs_the_three_kernels(dev):
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_autograd_runs_the_three_kernels(dev, D):
     from ray_tpu_torch.ops import attention as att
 
-    q, k, v, do, seg = _qkv(dev, 2, 300, 8, 2, seed=3)
+    q, k, v, do, seg = _qkv(dev, 2, 300, 8, 2, seed=3, D=D)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = (att.LAUNCHES, att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
     # dO reaches the backward strided (the same values, heads-major in
@@ -155,6 +168,32 @@ def test_flash_attention_autograd_runs_the_three_kernels(dev):
     for name, got, want in zip(("dq", "dk", "dv"), leaves, ref):
         ok, err = _close(got.grad, want.grad)
         assert ok, (name, err)
+
+
+def test_one_wrapper_dispatches_both_head_dims(dev):
+    """The same wrappers take D 64 and D 128 (each launches its own template
+    instance and agrees with the plain version) and refuse other head dims
+    before any launch."""
+    from ray_tpu_torch.ops import attention as att
+
+    for D in (64, 128, 64):
+        q, k, v, do, seg = _qkv(dev, 1, 200, 8, 2, seed=D, D=D)
+        before = (att.LAUNCHES, att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
+        o, lse = att.flash_fwd(q, k, v, segment_ids=seg)
+        grads = att.flash_bwd(q, k, v, o, lse, do, segment_ids=seg)
+        torch.cuda.synchronize()
+        assert (att.LAUNCHES, att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES) == tuple(n + 1 for n in before)
+        assert (o.float() - att.mha_reference(q.float(), k.float(), v.float(), segment_ids=seg)).abs().max() <= 2e-2
+        want = att.flash_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, do.float(), segment_ids=seg)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            ok, err = _close(g, w)
+            assert ok, (D, name, err)
+    for D in (32, 256):
+        q, k, v, _, _ = _qkv(dev, 1, 64, 4, 2, seed=0, D=D)
+        before = att.LAUNCHES
+        with pytest.raises(ValueError, match="head_dim"):
+            att.flash_fwd(q, k, v)
+        assert att.LAUNCHES == before
 
 
 def _paged_inputs(dev, lengths, H, KV, D, ps, ppseq, seed):

@@ -1,8 +1,11 @@
 """The port's LLMEngine against ray_tpu's LLMEngine on converted fp32
 weights: identical greedy tokens for a mixed batch of prompts through fewer
 slots than requests (continuous batching and slot reuse), in both KV
-layouts. Then the scheduler cases of tests/test_llm.py on the port alone:
-EOS stops, paged admission waits for pages, pages recycle, abort frees.
+layouts, at head dim 16 and 128. Then the scheduler cases of
+tests/test_llm.py on the port alone: EOS stops, paged admission waits for
+pages, pages recycle, abort frees; and what both engines refuse when they
+are built (an MoE model; on the card, a head dim the flash kernels are not
+built for).
 """
 import jax
 import jax.numpy as jnp
@@ -16,17 +19,30 @@ from ray_tpu.models import TransformerConfig as JaxConfig
 from ray_tpu.models.transformer import init_params as jax_init
 from ray_tpu_torch.convert import from_numpy_tree
 from ray_tpu_torch.llm import EngineConfig, LLMEngine
-from ray_tpu_torch.models import TransformerConfig
+from ray_tpu_torch.models import TransformerConfig, make_train_step
+from ray_tpu_torch.ops.attention import HEAD_DIMS, check_head_dim
 
 SMALL = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=128)
-JCFG = JaxConfig(**SMALL, dtype=jnp.float32, attention_impl="reference")
+# head_dim 128 (the flash kernels' second instance on the card), MQA.
+SMALL_D128 = dict(SMALL, d_model=256, n_heads=2, n_kv_heads=1)
 CFG = TransformerConfig(**SMALL, dtype=torch.float32)
+MODELS = {"small": SMALL, "d128": SMALL_D128}
 
 
 @pytest.fixture(scope="module")
 def weights():
-    jp = jax_init(jax.random.PRNGKey(0), JCFG)
-    return jp, from_numpy_tree(jax.tree.map(np.asarray, jp), CFG)
+    """Converted weights per model, drawn once per module."""
+    cache = {}
+
+    def get(model):
+        if model not in cache:
+            jcfg = JaxConfig(**MODELS[model], dtype=jnp.float32, attention_impl="reference")
+            tcfg = TransformerConfig(**MODELS[model], dtype=torch.float32)
+            jp = jax_init(jax.random.PRNGKey(0), jcfg)
+            cache[model] = jcfg, tcfg, jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tcfg)
+        return cache[model]
+
+    return get
 
 
 def _drain(eng, prompts, max_tokens):
@@ -40,17 +56,20 @@ def _drain(eng, prompts, max_tokens):
     return out
 
 
-@pytest.mark.parametrize("layout,slots", [("paged", 3), ("dense", 2), ("paged", 4)])
-def test_greedy_tokens_match_jax_engine(weights, layout, slots):
-    jp, tp = weights
+@pytest.mark.parametrize("layout,slots,model", [
+    pytest.param("paged", 3, "small", id="paged-3"), pytest.param("dense", 2, "small", id="dense-2"),
+    pytest.param("paged", 4, "small", id="paged-4"), pytest.param("paged", 3, "d128", id="paged-3-d128"),
+    pytest.param("dense", 2, "d128", id="dense-2-d128")])
+def test_greedy_tokens_match_jax_engine(weights, layout, slots, model):
+    jcfg, tcfg, jp, tp = weights(model)
     rng = np.random.default_rng(slots)
     prompts = [rng.integers(1, 97, n).astype(np.int32) for n in (3, 9, 17, 30, 5, 12)]
     max_tokens = [10 + i for i in range(6)]
     kw = dict(kv_layout=layout, max_slots=slots, max_seq=128, prefill_buckets=(16, 32), decode_block=4)
     if layout == "paged":
         kw["page_size"] = 16
-    want = _drain(JaxLLMEngine(JCFG, params=jp, engine_config=JaxEngineConfig(**kw)), prompts, max_tokens)
-    got = _drain(LLMEngine(CFG, params=tp, engine_config=EngineConfig(**kw), device="cpu"),
+    want = _drain(JaxLLMEngine(jcfg, params=jp, engine_config=JaxEngineConfig(**kw)), prompts, max_tokens)
+    got = _drain(LLMEngine(tcfg, params=tp, engine_config=EngineConfig(**kw), device="cpu"),
                  prompts, max_tokens)
     assert got == want
 
@@ -146,3 +165,37 @@ def test_later_slice_options_raise(option):
         exc, match = ValueError, "requires kv_layout='paged'"
     with pytest.raises(exc, match=match):
         _engine(max_seq=128, **option)
+
+
+def test_moe_model_is_refused_by_both_engines():
+    """Serving an MoE model is not supported in either package: both engines
+    raise the same ValueError when they are built, before any step."""
+    kw = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64, max_seq_len=256,
+              n_experts=4)
+    ek = dict(kv_layout="paged", page_size=32)
+    with pytest.raises(ValueError, match="MoE serving not supported") as want:
+        JaxLLMEngine(JaxConfig(**kw), engine_config=JaxEngineConfig(**ek))
+    with pytest.raises(ValueError, match="MoE serving not supported") as got:
+        LLMEngine(TransformerConfig(**kw), engine_config=EngineConfig(**ek), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+def test_flash_head_dim_is_checked_when_built(head_dim):
+    """On a CUDA device the engine and the train state refuse a head dim the
+    flash kernels are not built for, when they are built (the check runs
+    before anything is allocated, so a device object is enough here); the
+    CPU takes every head dim through the plain versions."""
+    cuda = torch.device("cuda")
+    check_head_dim(head_dim, torch.device("cpu"))
+    if head_dim in HEAD_DIMS:
+        check_head_dim(head_dim, cuda)
+        return
+    with pytest.raises(ValueError, match=f"head_dim {head_dim} .*supported: 64, 128"):
+        check_head_dim(head_dim, cuda)
+    cfg = TransformerConfig(**dict(SMALL, d_model=4 * head_dim), dtype=torch.float32)
+    with pytest.raises(ValueError, match=f"head_dim {head_dim}"):
+        LLMEngine(cfg, engine_config=EngineConfig(kv_layout="paged", page_size=16), device=cuda)
+    init_state, _ = make_train_step(cfg)
+    with pytest.raises(ValueError, match=f"head_dim {head_dim}"):
+        init_state(torch.Generator().manual_seed(0), device=cuda)

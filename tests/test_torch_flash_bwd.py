@@ -15,7 +15,8 @@ is the same arithmetic in another summation order (blockwise vs whole-row
 einsums), gradients of magnitude <= ~20: atol/rtol 1e-4. Autograd through
 the softmax against the recompute-form custom VJP differ by more (the
 softmax backward is taken another way): 5e-4, as ``tests/test_attention.py``
-holds the JAX kernel against the JAX reference.
+holds the JAX kernel against the JAX reference. Each test runs at head dim
+64 and 128, the two head dims the kernels are built for.
 """
 import jax
 import jax.numpy as jnp
@@ -26,12 +27,15 @@ import torch
 from ray_tpu.ops import attention as jatt
 from ray_tpu_torch.ops import attention as tatt
 
-D = 64
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
+# (H, KV, D): the D-64 cases keep their ids.
+HEADS = [pytest.param(4, 4, 64, id="4-4"), pytest.param(4, 2, 64, id="4-2"), pytest.param(8, 2, 64, id="8-2"),
+         pytest.param(4, 4, 128, id="4-4-d128"), pytest.param(4, 2, 128, id="4-2-d128"),
+         pytest.param(8, 2, 128, id="8-2-d128")]
 
 
-def _case(B, S, H, KV, seed):
+def _case(B, S, H, KV, seed, D=64):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, S, H, D)).astype(np.float32)
     k = rng.normal(size=(B, S, KV, D)).astype(np.float32)
@@ -48,10 +52,10 @@ def _t(a):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (8, 2)])
-def test_bwd_reference_matches_jax_kernels(causal, H, KV):
+@pytest.mark.parametrize("H,KV,D", HEADS)
+def test_bwd_reference_matches_jax_kernels(causal, H, KV, D):
     B, S = 2, 256
-    q, k, v, do, seg = _case(B, S, H, KV, seed=H * 10 + KV + causal)
+    q, k, v, do, seg = _case(B, S, H, KV, seed=H * 10 + KV + causal, D=D)
     fold = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(-1, S, D)  # noqa: E731
     unfold = lambda x, h: np.asarray(x).reshape(B, h, S, D).transpose(0, 2, 1, 3)  # noqa: E731
     seg8 = jnp.broadcast_to(jnp.asarray(seg)[:, None, :], (B, 8, S))
@@ -73,9 +77,9 @@ def _sin_loss_grads_torch(q, k, v, seg, causal):
 
 
 @pytest.mark.parametrize("with_seg", [False, True])
-@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (8, 2)])
-def test_autograd_matches_jax_grad_of_flash_kernel(H, KV, with_seg):
-    q, k, v, _, seg = _case(2, 256, H, KV, seed=H + KV)
+@pytest.mark.parametrize("H,KV,D", HEADS)
+def test_autograd_matches_jax_grad_of_flash_kernel(H, KV, D, with_seg):
+    q, k, v, _, seg = _case(2, 256, H, KV, seed=H + KV, D=D)
     seg = seg if with_seg else None
 
     def loss(q, k, v):
@@ -89,10 +93,11 @@ def test_autograd_matches_jax_grad_of_flash_kernel(H, KV, with_seg):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
 
 
-def test_ragged_length_autograd_matches_jax_reference():
+@pytest.mark.parametrize("D", [64, 128])
+def test_ragged_length_autograd_matches_jax_reference(D):
     """S = 200, not a multiple of the JAX kernel's 128: the JAX wrapper takes
     its reference there; the port's kernels mask the ragged tail."""
-    q, k, v, _, seg = _case(2, 200, 8, 2, seed=5)
+    q, k, v, _, seg = _case(2, 200, 8, 2, seed=5, D=D)
 
     def loss(q, k, v):
         return jnp.sum(jnp.sin(jatt.mha_reference(q, k, v, causal=True, segment_ids=jnp.asarray(seg))))
@@ -103,10 +108,11 @@ def test_ragged_length_autograd_matches_jax_reference():
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
 
 
-def test_bwd_reference_is_the_autograd_gradient_at_a_ragged_length():
+@pytest.mark.parametrize("D", [64, 128])
+def test_bwd_reference_is_the_autograd_gradient_at_a_ragged_length(D):
     """The recompute form at S = 200 (the shape the kernels mask) equals
     autograd through the plain forward on the same inputs and LSE."""
-    q, k, v, do, seg = _case(2, 200, 8, 2, seed=9)
+    q, k, v, do, seg = _case(2, 200, 8, 2, seed=9, D=D)
     qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
     o, lse = tatt.mha_reference(qt, kt, vt, causal=True, segment_ids=_t(seg), return_lse=True)
     o.backward(_t(do))

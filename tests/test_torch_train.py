@@ -147,6 +147,25 @@ def test_moe_loss_and_gradients_match_jax():
     _assert_tree_close(got_g, want_g, atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("kind", ["plain", "packed"])
+def test_gradients_at_head_dim_128_match_jax(kind):
+    """head_dim 128 (d_model 256, 2 heads, one KV head), the second head dim
+    the flash kernels are built for: the loss and every leaf's gradient
+    against jax.grad on one converted tree."""
+    kw = dict(SMALL, d_model=256, n_heads=2, n_kv_heads=1)
+    jc = jt.TransformerConfig(**kw, dtype=jnp.float32, attention_impl="reference")
+    tc = tt.TransformerConfig(**kw, dtype=torch.float32, attention_impl="reference")
+    assert tc.head_dim == 128
+    jp, tp = _params(jc, tc, seed=7)
+    b = _batch(kind, seed=7)
+    want, want_g = jax.value_and_grad(jt.cross_entropy_loss)(jp, _jb(b), jc)
+    loss, _ = _grads(tp, tc, b)
+    np.testing.assert_allclose(loss, float(want), **TOL)
+    got_g = to_numpy_tree({k: (v.grad if k != "layers" else {n: t.grad for n, t in v.items()})
+                           for k, v in tp.items()})
+    _assert_tree_close(got_g, want_g, atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.parametrize("policy", ["full", "dots"])
 @pytest.mark.parametrize("moe", [False, True])
 def test_remat_keeps_the_gradients(policy, moe):
