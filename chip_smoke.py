@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
   2. build: compiles the CUDA kernels from ray_tpu_torch/ops/csrc (one nvcc
      per source, in parallel) into ray_tpu_torch/ops/_build_out, every
-     template instance (K1, K3 and K2 at head dims 64 and 128; K4 per
+     template instance (K1, K3 and K2 at head dims 64, 128 and 256; K4 per
      group) in the same build, and prints each instance's ptxas registers
      and spill bytes (a source already built by an earlier run of the same
      checkout is not compiled again and has no report).
@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero:
      launches on the same inputs must be bitwise equal. Timed at the
      engine's prefill shape (one group of 8 prompts of 512 tokens) and at
      the training shape (B 16, S 2048, causal), with TFLOP/s and the time
-     over its bound. Every kernel's `ms` (and SDPA's forward) is its device
+     over its bound, and held against its plain version at both, on the
+     timed inputs, with the same bounds. Every kernel's `ms` (and SDPA's forward) is its device
      time from a CUDA graph of back-to-back calls (device_ms); `eager_ms`
      (K1 at the prefill shape, K4) is the eager back-to-back time, which at
      those shapes is the wrapper's host time.
@@ -85,21 +86,24 @@ Phases, in order; any failure exits non-zero:
      differ); one page copy bitwise equal in every layer. TTFT of the seed,
      the partial and the exact hits and decode tokens/s during the steps
      that begin mid-prefill are printed, not gated.
-  3-5 at D 128: phases 3, 4 and 5 again at head dim 128 and Mistral-7B's
-     heads (H 32, KV 8), after every D-64 phase (3, 4, 5, 5b) has run on
-     the random streams of earlier versions of this script. K1: B in {1, 8},
-     S in {512, 1000, 4096}, causal and not, with a pad segment, plus MQA
-     (H 8, KV 1), packed segments (B 2 x S 4096), S 64 and S 33; K3/K2 the
-     same set at B in {1, 2}; the plain versions run one batch row at a time
-     (a row's fp32 scores are 2.1 GB). The same tolerances and two-launch
-     checks. K1 timed at the 7B engine's prefill shape (one group of 8 x
-     1024) and its training shape (B 8 x S 4096), K3/K2 at the training
-     shape, each beside SDPA's forward or backward; the timed K3/K2 inputs
-     are also held against the plain backward, so the training shape
-     itself is checked (at D 64 too). K4: the 7B engine's
-     decode shape (32 sequences of 1025..1152 tokens, page 128, group 4, a
-     32-page table), one sequence split over most of its table, the
-     two-launch check, then timed at the decode shape.
+  3-5 at D 128 and D 256: phases 3, 4 and 5 again at head dim 128 and
+     Mistral-7B's heads (H 32, KV 8), then at head dim 256 and Gemma-2B's
+     (H 8, KV 1), after every D-64 phase (3, 4, 5, 5b) has run on the
+     random streams of earlier versions of this script. K1: B in {1, 8} at
+     D 128, {1, 4} at D 256, S in {512, 1000, 4096}, causal and not, with a
+     pad segment, plus MQA or GQA (H 8, KV 1 or 2), packed segments (B 2 x
+     S 4096), S 64 and S 33; K3/K2 the same set at B in {1, 2} (D 128) or
+     {1, 4} (D 256); the plain versions run one batch row at a time (a
+     row's fp32 scores are 2.1 GB at 32 heads). The same tolerances and
+     two-launch checks. K1 timed at the large engine's prefill shape (one
+     group of 8 prompts: 8 x 1024 at D 128, 8 x 2048 at D 256) and the
+     training shape (B 8 x S 4096), K3/K2 at the training shape, each beside
+     SDPA's forward or backward; the timed inputs of K1 (at both shapes)
+     and of K3/K2 are also held against the plain versions, so the timed
+     shapes themselves are checked (at D 64 too). K4: the large engine's decode shape (32 sequences of
+     1025..1152 tokens at group 4, or of 2049..2176 at group 8, page 128, a
+     table of max_seq / 128 pages), one sequence split over most of its
+     table, the two-launch check, then timed at the decode shape.
   6c. serve-mistral7b-paged: Mistral-7B-v0.3's shape (vocab 32768, d_model
      4096, 32 layers, 32 heads, 8 KV heads, head_dim 128, d_ff 14336,
      max_seq 4096, rope_theta 1e6; 7.25B parameters, 14.5 GB in bf16) with
@@ -109,8 +113,15 @@ Phases, in order; any failure exits non-zero:
      finishes with its 128 tokens inside the vocabulary; K1 launches =
      32 x the prefill groups and K4 = 32 x the decode steps, both counted
      from the engine's calls and both > 0; the prefill logits of all 32
-     prompts against the plain forward (4 prompts at a time) within phase
-     6's 0.25 / 0.02, every first token within 0.25 of the plain top-1.
+     prompts against the plain forward (4 prompts at a time, its last
+     position only) within phase 6's 0.25 / 0.02, every first token within
+     0.25 of the plain top-1.
+  6d. serve-gemma2b-paged: Gemma-2B's shape (vocab 256000, d_model 2048, 18
+     layers, 8 heads, 1 KV head, head_dim 256, d_ff 16384, max_seq 8192;
+     3.03B parameters, 6.1 GB in bf16), not cut, through the same engine
+     (page 128, 32 slots: 2049 pages, 4.8 GB of KV): 32 greedy requests of
+     2048 prompt tokens and 128 new tokens at once. The gates of 6c, K1 and
+     K4 at D 256.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -139,12 +150,17 @@ Phases, in order; any failure exits non-zero:
      B 8 x S 4096 on one seeded batch: a warmup step, then 10 timed steps.
      The loss must be finite and fall; each step launches K1 8 times, K3 4
      and K2 4. Prints step time, tokens/s, MFU and peak memory.
+  7f. train-gemma2b-4L: 7e at Gemma-2B's widths (K1-K3 at D 256), cut to 4
+     of 18 layers (1.489B parameters; the whole model's AdamW state is
+     ~48 GB), with the loss over sequence chunks of 1024 (ce_chunk: the
+     [8, 4096, 256000] logits never exist; a fallback to them is an error).
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
-     {"engine_mistral7b": ...}, {"train": ...}, {"train_mistral7b": ...},
-     {"kernels": [...]} (each kernel's D-64 numbers, its "d128" numbers and
-     its launches by path, ptxas's registers and spills per instance, null
-     where this run did not compile it) and,
-     last, {"ok": true, "device": ...}.
+     {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"train": ...},
+     {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
+     (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
+     launches by path and ptxas report, its launches by path, ptxas's
+     registers and spills per instance, null where this run did not
+     compile it) and, last, {"ok": true, "device": ...}.
 
 ``--profile DIR`` also traces the paged engine with torch.profiler (the
 admission step with its prefills, then two decode steps), the admission
@@ -152,7 +168,8 @@ step of 32 more partial hits in phase 6b (with the device time under the
 tail attention's einsums and softmax, the GEMMs and the page copies), the
 7B engine's admission step and two decode steps (6c), and one training
 step of each training cell, prints each window's device time by kind of
-kernel, and writes the kernel tables and traces to DIR.
+kernel, and writes the kernel tables and traces to DIR (the 2B engine's
+and training step too).
 """
 from __future__ import annotations
 
@@ -182,9 +199,29 @@ MODEL = dict(vocab_size=32_000, d_model=1024, n_layers=12, n_heads=H, n_kv_heads
 H7, KV7, D7 = 32, 8, 128
 MISTRAL = dict(vocab_size=32_768, d_model=4096, n_layers=32, n_heads=H7, n_kv_heads=KV7, d_ff=14_336,
                max_seq_len=4096, rope_theta=1e6)
-M_REQ, M_PROMPT, M_TOKENS, M_SLOTS, M_CHECK_CHUNK = 32, 1024, 128, 32, 4  # phase 6c
-M_TRAIN_LAYERS, M_TRAIN_B, M_TRAIN_S = 4, 8, 4096  # phase 7e (depth cut to 4 layers)
-M_PARITY_LAYERS, M_PARITY_B, M_PARITY_S = 2, 1, 2048
+# Gemma-2B's published shape (huggingface.co/google/gemma-2b, config.json:
+# hidden_size 2048, 18 layers, 8 heads, 1 KV head, head_dim 256,
+# intermediate_size 16384, vocab 256000, max_position_embeddings 8192,
+# rope_theta 10000, rms_norm_eps 1e-6). Departures, both packages' model
+# code: SwiGLU where Gemma gates with GELU, an untied head, no sqrt(hidden)
+# scaling of the embeddings and RMSNorm weights w where Gemma has 1 + w.
+H2, KV2, D2 = 8, 1, 256
+GEMMA = dict(vocab_size=256_000, d_model=2048, n_layers=18, n_heads=H2, n_kv_heads=KV2, d_ff=16_384,
+             max_seq_len=8192, rope_theta=10_000.0)
+# The large-model cells: 6c/7e at Mistral-7B's shape (D 128), 6d/7f at
+# Gemma-2B's (D 256). serve: requests x prompt tokens x new tokens at once,
+# engine slots, prompts per plain forward in the logits gate; train: the
+# widths cut to `layers` layers at B x S (ce_chunk: the loss over sequence
+# chunks of that size, 0 = whole logits); parity: the 2-layer gradient
+# check before it.
+BIG = {
+    "mistral7b": dict(model=MISTRAL, serve=dict(req=32, prompt=1024, tokens=128, slots=32, check_chunk=4),
+                      train=dict(layers=4, b=8, s=4096, ce_chunk=0), parity=dict(layers=2, b=1, s=2048, seed=2)),
+    "gemma2b": dict(model=GEMMA, serve=dict(req=32, prompt=2048, tokens=128, slots=32, check_chunk=4),
+                    train=dict(layers=4, b=8, s=4096, ce_chunk=1024), parity=dict(layers=2, b=1, s=2048, seed=3)),
+}
+M_PROMPT, M_TOKENS = BIG["mistral7b"]["serve"]["prompt"], BIG["mistral7b"]["serve"]["tokens"]
+G_PROMPT, G_TOKENS = BIG["gemma2b"]["serve"]["prompt"], BIG["gemma2b"]["serve"]["tokens"]
 N_REQ, PROMPT_LEN, MAX_TOKENS, SLOTS, PAGE = 32, 512, 64, 32, 128
 K1_CHECK = ((1, 512), (1, 1000), (1, 2048), (8, 512), (8, 1000), (8, 2048))  # (B, S)
 K4_B, K4_PPSEQ = 32, 16  # sequences; pages per sequence (max length 2048)
@@ -205,7 +242,8 @@ PREFIX_OPS = ("aten::einsum", "aten::_softmax", "aten::masked_fill", "aten::mm",
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 2048, 10  # bench.py's batch and sequence
 PARITY_LAYERS, PARITY_B = 2, 2
 # The kernel phases' shapes for each head dim: D 64 at the 250M model's
-# heads, D 128 at Mistral-7B's (H 32, KV 8). k1/k23: (B, S) swept with a
+# heads, D 128 at Mistral-7B's (H 32, KV 8), D 256 at Gemma-2B's (H 8, KV
+# 1) with GQA cases (H 8, KV 2). k1/k23: (B, S) swept with a
 # pad segment, causal and not; extra: (B, S, H, KV, segments); det: the
 # two-launch check's (B, S); prefill/train: the timed shapes (one group of 8
 # prompts of the serving cell's prompt length; the training cell's batch).
@@ -218,9 +256,17 @@ SHAPES = {
               k23=((1, 512), (1, 1000), (1, 4096), (2, 512), (2, 1000), (2, 4096)),
               extra=((2, 1000, 8, 1, "pad"), (2, 4096, H7, KV7, "packed"), (2, 64, H7, KV7, "pad"),
                      (3, 33, 8, 2, "pad")),
-              det=(2, 4096), prefill=(8, M_PROMPT), train=(M_TRAIN_B, M_TRAIN_S), rows=True),
+              det=(2, 4096), prefill=(8, M_PROMPT), train=(8, 4096), rows=True),
+    256: dict(h=H2, kv=KV2, d=D2, k1=((1, 512), (1, 1000), (1, 4096), (4, 512), (4, 1000), (4, 4096)),
+              k23=((1, 512), (1, 1000), (1, 4096), (4, 512), (4, 1000), (4, 4096)),
+              extra=((2, 1000, 8, 2, "pad"), (2, 4096, H2, KV2, "packed"), (2, 4096, 8, 2, "packed"),
+                     (2, 64, H2, KV2, "pad"), (3, 33, 8, 2, "pad")),
+              det=(2, 4096), prefill=(8, G_PROMPT), train=(8, 4096), rows=True),
 }
-K4_128 = dict(lengths=(M_PROMPT + 1, M_PROMPT + M_TOKENS), ppseq=4096 // 128)  # the 7B engine's decode shape
+# K4's decode shapes at D 128 and 256: the 7B and 2B engines' (32
+# sequences, page 128, tables of max_seq / 128 pages).
+K4_BIG = {128: dict(h=H7, kv=KV7, lengths=(M_PROMPT + 1, M_PROMPT + M_TOKENS), ppseq=4096 // 128),
+          256: dict(h=H2, kv=KV2, lengths=(G_PROMPT + 1, G_PROMPT + G_TOKENS), ppseq=8192 // 128)}
 
 
 def log(*a):
@@ -384,28 +430,34 @@ def _bwd_rows(q, k, v, o, lse, do, seg=None, causal=True, scale=None):
     return tuple(torch.cat(t) for t in zip(*parts))
 
 
-def _check_k1(dev, B, S, seg, causal, h=H, kv=KV, label="pad", d=D):
-    """K1 against mha_reference in fp32 on the same bf16 inputs; returns
-    max |o - o_ref|."""
+def _hold_k1(q, k, v, seg, causal, desc):
+    """K1 on these bf16 inputs against mha_reference in fp32 on the same
+    inputs: max |o - o_ref| <= 2e-2 and max |lse - lse_ref| <= 1e-3, or it
+    raises; returns max |o - o_ref|."""
     import torch
 
     from ray_tpu_torch.ops import attention as att
 
-    q = torch.randn(B, S, h, d, device=dev).bfloat16()
-    k = torch.randn(B, S, kv, d, device=dev).bfloat16()
-    v = torch.randn(B, S, kv, d, device=dev).bfloat16()
     o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=causal)
     torch.cuda.synchronize()
     o_ref, lse_ref = _mha_rows(q.float(), k.float(), v.float(), causal, seg)
     err = (o.float() - o_ref).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
     finite = bool(torch.isfinite(o).all())
-    log(f"K1 D={d} B={B} S={S} H={h} KV={kv} {label} causal={causal}: max|o-ref| {err:.3e}  "
-        f"max|lse-ref| {lse_err:.3e}  finite {finite}")
+    log(f"K1 {desc}: max|o-ref| {err:.3e}  max|lse-ref| {lse_err:.3e}  finite {finite}")
     if not (finite and err <= 2e-2 and lse_err <= 1e-3):
-        raise AssertionError(f"K1 disagrees with its plain version at D={d} B={B} S={S} H={h} KV={kv} {label} "
-                             f"causal={causal}")
+        raise AssertionError(f"K1 disagrees with its plain version at {desc}")
     return err
+
+
+def _check_k1(dev, B, S, seg, causal, h=H, kv=KV, label="pad", d=D):
+    """K1 against its plain version on random bf16 inputs of this shape."""
+    import torch
+
+    q = torch.randn(B, S, h, d, device=dev).bfloat16()
+    k = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    v = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    return _hold_k1(q, k, v, seg, causal, f"D={d} B={B} S={S} H={h} KV={kv} {label} causal={causal}")
 
 
 def phase_k1(dev, rng, shp):
@@ -451,6 +503,7 @@ def phase_k1(dev, rng, shp):
     v = torch.randn(B, S, kv, d, device=dev).bfloat16()
     seg_np = np.zeros((B, S), np.int32)
     seg = torch.from_numpy(seg_np).to(dev)
+    worst = max(worst, _hold_k1(q, k, v, seg, True, f"D={d} B={B} S={S} H={h} KV={kv} engine shape causal=True"))
     ms = device_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
     eager_ms = time_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True))
     plain_ms = time_ms(lambda: plain(q, k, v, seg))
@@ -471,6 +524,7 @@ def phase_k1(dev, rng, shp):
     q = torch.randn(B, S, h, d, device=dev).bfloat16()
     k = torch.randn(B, S, kv, d, device=dev).bfloat16()
     v = torch.randn(B, S, kv, d, device=dev).bfloat16()
+    worst = max(worst, _hold_k1(q, k, v, None, True, f"D={d} B={B} S={S} H={h} KV={kv} training shape causal=True"))
     t_ms = device_ms(lambda: att.flash_fwd(q, k, v, causal=True), iters=10)
     t_plain = time_ms(lambda: plain(q, k, v), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -593,20 +647,22 @@ def phase_k4(dev, rng):
     return dict(max_abs_err=err, **_time_k4(dev, rng, [int(n) for n in lengths], K4_PPSEQ, H, KV, D))
 
 
-def phase_k4_d128(dev, rng):
-    """K4 at D 128 and Mistral-7B's heads (group 4): the 7B engine's decode
-    shape (32 sequences of 1025..1152 tokens, page 128, a 32-page table) and
-    one sequence split over most of its table, the two-launch check, then
-    the time at the decode shape."""
+def phase_k4_big(dev, rng, d):
+    """K4 at a large model's decode shape (K4_BIG[d]: D 128 at Mistral-7B's
+    heads, group 4, 32 sequences of 1025..1152 tokens; D 256 at Gemma-2B's,
+    group 8, 32 sequences of 2049..2176), page 128, and one sequence split
+    over most of its table, the two-launch check, then the time at the
+    decode shape."""
     import torch
 
-    lo, hi = K4_128["lengths"]
-    ppseq = K4_128["ppseq"]
-    lengths = [int(n) for n in rng.integers(lo, hi + 1, M_REQ)]
-    err = max(_check_k4(dev, rng, lengths, PAGE, ppseq, H7, KV7, d=D7)[0],
-              _check_k4(dev, rng, _k4_lengths(rng, 1, PAGE, ppseq), PAGE, ppseq, H7, KV7, d=D7)[0])
-    _k4_determinism(dev, rng, lengths, ppseq, H7, KV7, D7)
-    out = dict(max_abs_err=err, **_time_k4(dev, rng, lengths, ppseq, H7, KV7, D7))
+    shp = K4_BIG[d]
+    h, kv, ppseq = shp["h"], shp["kv"], shp["ppseq"]
+    lo, hi = shp["lengths"]
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, 32)]
+    err = max(_check_k4(dev, rng, lengths, PAGE, ppseq, h, kv, d=d)[0],
+              _check_k4(dev, rng, _k4_lengths(rng, 1, PAGE, ppseq), PAGE, ppseq, h, kv, d=d)[0])
+    _k4_determinism(dev, rng, lengths, ppseq, h, kv, d)
+    out = dict(max_abs_err=err, **_time_k4(dev, rng, lengths, ppseq, h, kv, d))
     torch.cuda.empty_cache()
     return out
 
@@ -832,7 +888,7 @@ def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02
     at a time (default all: the plain forward's fp32 scores grow with it)."""
     import torch
 
-    from ray_tpu_torch.models import forward
+    from ray_tpu_torch.models.transformer import forward_hidden, linear
 
     n, P = len(prompts), len(prompts[0])
     chunk = chunk or n
@@ -843,7 +899,10 @@ def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02
             part = np.stack(prompts[i:i + chunk])
             m = len(part)
             toks = torch.tensor(part, dtype=torch.long, device=dev)
-            plain.append(forward(eng.params, toks, plain_cfg)[:, -1].float())  # [m, V]
+            # The plain forward's last position only: the [m, S, V] logits
+            # at a 256000-entry vocabulary are 1 GB a 2048-token prompt in bf16.
+            hidden = forward_hidden(eng.params, toks, plain_cfg)[0][:, -1]
+            plain.append(linear(hidden, eng.params["lm_head"]).float())  # [m, V]
             third = (np.zeros((m, P // eng.ec.page_size), np.int32) if eng.paged
                      else np.arange(m, dtype=np.int64))  # dead page / idle slots
             served.append(eng._prefill_logits(part, np.full(m, P, np.int32), third))
@@ -1230,11 +1289,11 @@ def _count_calls(eng):
     return groups, steps, undo
 
 
-def phase_mistral_serve(dev, rng, profile_dir=None):
-    """Phase 6c (serve-mistral7b-paged): Mistral-7B-v0.3's shape at full
-    width and depth (32 layers, head_dim 128) through the paged engine with
-    seeded random weights; 32 greedy requests of 1024 prompt tokens and 128
-    new tokens at once. K1 at D 128 prefills, K4 at D 128 decodes."""
+def phase_big_serve(dev, rng, name, profile_dir=None):
+    """Phase 6c (serve-mistral7b-paged) or 6d (serve-gemma2b-paged): the
+    published shape of BIG[name] at full width and depth with seeded random
+    weights through the paged engine (page 128), its requests all at once.
+    K1 prefills and K4 decodes at the model's head dim."""
     import torch
 
     from ray_tpu_torch.llm import EngineConfig, LLMEngine
@@ -1242,22 +1301,24 @@ def phase_mistral_serve(dev, rng, profile_dir=None):
     from ray_tpu_torch.models.transformer import leaves
     from ray_tpu_torch.ops import attention, paged_attention
 
-    cfg = TransformerConfig(**MISTRAL)
+    spec = BIG[name]["serve"]
+    cfg = TransformerConfig(**BIG[name]["model"])
     t0 = time.perf_counter()
     eng = LLMEngine(cfg, engine_config=EngineConfig(
-        max_slots=M_SLOTS, max_seq=cfg.max_seq_len, kv_layout="paged", page_size=PAGE, seed=0))
+        max_slots=spec["slots"], max_seq=cfg.max_seq_len, kv_layout="paged", page_size=PAGE, seed=0))
     n_params = sum(t.numel() for t in leaves(eng.params))
     pool_gb = 2 * eng.k_pages.numel() * eng.k_pages.element_size() / 1e9
-    eng.warmup(buckets=(M_PROMPT,))
+    eng.warmup(buckets=(spec["prompt"],))
     torch.cuda.synchronize()
-    log(f"engine mistral7b: {n_params / 1e9:.3f}B params (bf16 {2 * n_params / 1e9:.1f} GB), paged KV "
-        f"{eng.ec.total_pages} pages x {PAGE} tokens ({pool_gb:.1f} GB), built and warmed up in "
+    log(f"engine {name}: {n_params / 1e9:.3f}B params (bf16 {2 * n_params / 1e9:.1f} GB), head_dim {cfg.head_dim}, "
+        f"paged KV {eng.ec.total_pages} pages x {PAGE} tokens ({pool_gb:.1f} GB), built and warmed up in "
         f"{time.perf_counter() - t0:.2f} s, memory {torch.cuda.memory_allocated() / 1e9:.1f} GB")
-    prompts = [rng.integers(0, cfg.vocab_size, M_PROMPT).astype(np.int32) for _ in range(M_REQ)]
+    n_req, n_tokens = spec["req"], spec["tokens"]
+    prompts = [rng.integers(0, cfg.vocab_size, spec["prompt"]).astype(np.int32) for _ in range(n_req)]
     groups, steps, undo = _count_calls(eng)
     torch.cuda.reset_peak_memory_stats()
     attention.LAUNCHES = paged_attention.LAUNCHES = 0
-    done, ttft, t0, t1 = drive(eng, prompts, M_TOKENS)
+    done, ttft, t0, t1 = drive(eng, prompts, n_tokens)
     launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
     undo()
     n_tok = sum(len(ev["tokens"]) for ev in done.values())
@@ -1266,93 +1327,106 @@ def phase_mistral_serve(dev, rng, profile_dir=None):
     stats = dict(
         ttft_p50_ms=1e3 * statistics.median(tt),
         ttft_p99_ms=1e3 * _pct(tt, 0.99),
-        decode_tok_s=(n_tok - M_REQ) / decode_s,
+        decode_tok_s=(n_tok - n_req) / decode_s,
         tok_s=n_tok / (t1 - t0),
         wall_s=t1 - t0,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        n_params=n_params, prefill_groups=len(groups), decode_steps=sum(steps),
+        n_params=n_params, head_dim=cfg.head_dim, prefill_groups=len(groups), decode_steps=sum(steps),
     )
-    log(f"engine mistral7b paged: {len(done)} requests x {M_TOKENS} tokens, wall {stats['wall_s']:.3f} s, "
-        f"TTFT p50 {stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, "
+    log(f"engine {name} paged: {len(done)} requests x {spec['prompt']} prompt x {n_tokens} tokens, wall "
+        f"{stats['wall_s']:.3f} s, TTFT p50 {stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, "
         f"decode {stats['decode_tok_s']:.1f} tok/s, overall {stats['tok_s']:.1f} tok/s, "
         f"peak mem {stats['peak_mem_gb']:.2f} GB")
     want = {"flash_fwd": cfg.n_layers * len(groups), "paged_decode": cfg.n_layers * sum(steps)}
     log(f"  launches on the main path: K1 {launches['flash_fwd']}  K4 {launches['paged_decode']} "
         f"({len(groups)} prefill groups {groups[:1]}..., {sum(steps)} decode steps; expected {want})")
-    if not _finished(done, M_REQ, cfg.vocab_size, max_tokens=M_TOKENS):
-        raise AssertionError("mistral7b engine run did not finish every request with max_tokens valid tokens")
+    if not _finished(done, n_req, cfg.vocab_size, max_tokens=n_tokens):
+        raise AssertionError(f"{name} engine run did not finish every request with max_tokens valid tokens")
     if launches != want or min(launches.values()) == 0:
-        raise AssertionError(f"mistral7b launches {launches} != {want} (or a kernel never launched)")
-    stats.update(check_first_tokens(cfg, eng, prompts, done, dev, chunk=M_CHECK_CHUNK))
+        raise AssertionError(f"{name} launches {launches} != {want} (or a kernel never launched)")
+    stats.update(check_first_tokens(cfg, eng, prompts, done, dev, chunk=spec["check_chunk"]))
     if profile_dir:
-        profile_engine(eng, prompts, profile_dir, M_TOKENS, prefix="mistral7b_")
+        profile_engine(eng, prompts, profile_dir, n_tokens, prefix=f"{name}_")
     del eng
     torch.cuda.empty_cache()
     return stats, launches
 
 
-def phase_mistral_train(dev, card, profile_dir=None):
-    """Phase 7e (train-mistral7b-4L): the gradient check at Mistral-7B's
-    widths (2 layers, B 1 x S 2048, K1-K3 at D 128 against the plain path),
-    then make_train_step on the same widths cut to 4 layers at B 8 x S 4096."""
+def phase_big_train(dev, card, name, profile_dir=None):
+    """Phase 7e (train-mistral7b-4L) or 7f (train-gemma2b-4L): the gradient
+    check at BIG[name]'s widths (2 layers, B 1 x S 2048, K1-K3 at the
+    model's head dim against the plain path), then make_train_step on the
+    same widths cut to a few layers (remat "dots", AdamW, one seeded batch):
+    a warmup step and TRAIN_STEPS timed steps."""
+    import warnings
+
     import torch
 
     from ray_tpu_torch.models import TransformerConfig, make_train_step
     from ray_tpu_torch.models.transformer import init_params, leaves
     from ray_tpu_torch.ops import attention
 
-    cfg = TransformerConfig(**{**MISTRAL, "n_layers": M_PARITY_LAYERS})
-    g = torch.Generator(device=dev).manual_seed(2)
+    model, par, tr = BIG[name]["model"], BIG[name]["parity"], BIG[name]["train"]
+    cfg = TransformerConfig(**{**model, "n_layers": par["layers"]})
+    g = torch.Generator(device=dev).manual_seed(par["seed"])
     params = init_params(cfg, g, device=dev)
     for t in leaves(params):
         t.requires_grad_(True)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M_PARITY_B, M_PARITY_S + 1), generator=g, device=dev)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (par["b"], par["s"] + 1), generator=g, device=dev)}
     attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
     loss_f, g_flash = _loss_grads(params, batch, dataclasses.replace(cfg, attention_impl="flash"))
     parity_launches = (attention.LAUNCHES, attention.BWD_DQ_LAUNCHES, attention.BWD_DKV_LAUNCHES)
     plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
     loss_r, g_ref = _loss_grads(params, batch, plain_cfg)
     rel = _rel_errs(g_flash, g_ref)
-    log(f"train mistral7b parity ({M_PARITY_LAYERS} layers, B {M_PARITY_B} x S {M_PARITY_S}, bf16, D {D7}): "
+    log(f"train {name} parity ({par['layers']} layers, B {par['b']} x S {par['s']}, bf16, D {cfg.head_dim}): "
         f"oracle attention_impl={plain_cfg.attention_impl!r}; loss flash {loss_f:.5f} reference {loss_r:.5f}; "
         f"per-leaf |g-g_ref|/|g_ref| max {max(rel):.3e} mean {statistics.mean(rel):.3e}; launches K1/K3/K2 "
         f"{parity_launches}")
     if not (math.isfinite(loss_f) and abs(loss_f - loss_r) <= 1e-2 and max(rel) <= 5e-2):
-        raise AssertionError(f"mistral7b flash training gradients disagree with the plain path: {rel}")
-    if parity_launches != (M_PARITY_LAYERS,) * 3:
+        raise AssertionError(f"{name} flash training gradients disagree with the plain path: {rel}")
+    if parity_launches != (par["layers"],) * 3:
         raise AssertionError(f"the parity step did not run K1, K3, K2 once per layer: {parity_launches}")
     del params, g_flash, g_ref, batch
     torch.cuda.empty_cache()
 
-    cfg = TransformerConfig(**{**MISTRAL, "n_layers": M_TRAIN_LAYERS}, remat=True, remat_policy="dots")
+    B, S = tr["b"], tr["s"]
+    if tr["ce_chunk"] and S % tr["ce_chunk"]:
+        raise AssertionError(f"ce_chunk {tr['ce_chunk']} does not divide S {S}: the loss would materialise logits")
+    cfg = TransformerConfig(**{**model, "n_layers": tr["layers"]}, remat=True, remat_policy="dots",
+                            ce_chunk=tr["ce_chunk"])
     init_state, train_step = make_train_step(cfg)
     g = torch.Generator(device=dev).manual_seed(0)
     state = init_state(g, device=dev)
     n_params = sum(t.numel() for t in leaves(state["params"]))
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (M_TRAIN_B, M_TRAIN_S + 1), generator=g, device=dev)}
-    t0 = time.perf_counter()
-    first = train_step(state, batch)
-    torch.cuda.synchronize()
-    log(f"train mistral7b: {n_params / 1e9:.3f}B params ({M_TRAIN_LAYERS} of {MISTRAL['n_layers']} layers), remat "
-        f"{cfg.remat_policy!r}, B {M_TRAIN_B} x S {M_TRAIN_S}, warmup step {time.perf_counter() - t0:.2f} s, "
-        f"loss {first['loss'].item():.4f}")
-    torch.cuda.reset_peak_memory_stats()
-    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = [train_step(state, batch) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g, device=dev)}
+    with warnings.catch_warnings():
+        # The chunked loss's fallback to whole logits warns: make it an error here.
+        warnings.filterwarnings("error", message=".*ce_chunk.*")
+        t0 = time.perf_counter()
+        first = train_step(state, batch)
+        torch.cuda.synchronize()
+        log(f"train {name}: {n_params / 1e9:.3f}B params ({tr['layers']} of {model['n_layers']} layers), remat "
+            f"{cfg.remat_policy!r}, ce_chunk {cfg.ce_chunk}, B {B} x S {S}, warmup step "
+            f"{time.perf_counter() - t0:.2f} s, loss {first['loss'].item():.4f}")
+        torch.cuda.reset_peak_memory_stats()
+        attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = [train_step(state, batch) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     launches = {"flash_fwd": attention.LAUNCHES, "flash_bwd_dq": attention.BWD_DQ_LAUNCHES,
                 "flash_bwd_dkv": attention.BWD_DKV_LAUNCHES}
     losses = [m["loss"].item() for m in metrics]
     gnorms = [m["grad_norm"].item() for m in metrics]
-    tokens = M_TRAIN_B * M_TRAIN_S
-    flops = 6.0 * n_params * tokens + 12.0 * cfg.n_layers * cfg.d_model * M_TRAIN_S * tokens
+    tokens = B * S
+    flops = 6.0 * n_params * tokens + 12.0 * cfg.n_layers * cfg.d_model * S * tokens
     stats = dict(step_ms=dt * 1e3, tokens_per_s=tokens / dt, mfu=flops / dt / PEAK_BF16_FLOPS,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, loss_first=losses[0],
-                 loss_last=losses[-1], n_params=n_params, parity_max_rel=max(rel), card=card)
-    log(f"train mistral7b: {TRAIN_STEPS} steps, step {stats['step_ms']:.2f} ms, {stats['tokens_per_s']:.1f} "
+                 loss_last=losses[-1], n_params=n_params, head_dim=cfg.head_dim, ce_chunk=cfg.ce_chunk,
+                 parity_max_rel=max(rel), card=card)
+    log(f"train {name}: {TRAIN_STEPS} steps, step {stats['step_ms']:.2f} ms, {stats['tokens_per_s']:.1f} "
         f"tokens/s, MFU {stats['mfu']:.4f} (6NT + 12LdST against 989 TFLOP/s), peak mem "
         f"{stats['peak_mem_gb']:.2f} GB  [{card}]")
     log(f"  loss {' '.join(f'{x:.4f}' for x in losses)}")
@@ -1360,14 +1434,14 @@ def phase_mistral_train(dev, card, profile_dir=None):
     log(f"  launches in {TRAIN_STEPS} steps: K1 {launches['flash_fwd']}  K3 {launches['flash_bwd_dq']}  "
         f"K2 {launches['flash_bwd_dkv']}")
     if not all(math.isfinite(x) for x in losses + gnorms) or not losses[-1] < losses[0]:
-        raise AssertionError(f"mistral7b training loss is not finite and falling: {losses}")
+        raise AssertionError(f"{name} training loss is not finite and falling: {losses}")
     want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS, "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
             "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS}
     if launches != want:
-        raise AssertionError(f"mistral7b kernel launches in {TRAIN_STEPS} training steps {launches} != {want}")
+        raise AssertionError(f"{name} kernel launches in {TRAIN_STEPS} training steps {launches} != {want}")
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
-        _profile_window("mistral7b_train_step", lambda: train_step(state, batch), profile_dir)
+        _profile_window(f"{name}_train_step", lambda: train_step(state, batch), profile_dir)
     del state, batch
     torch.cuda.empty_cache()
     return stats, launches
@@ -1466,41 +1540,54 @@ def main(argv=None):
     card = phase_device()
     ptxas = phase_build()
     # Every D-64 phase first, in the order and on the random streams of
-    # earlier versions of this script; then the D-128 kernel phases.
-    k1 = phase_k1(dev, rng, SHAPES[64])
-    k4 = phase_k4(dev, rng)
-    k3, k2 = phase_k23(dev, rng, SHAPES[64])
-    splash = phase_splash(dev, rng, k1["train_shape"], k3, k2)
-    k1_128 = phase_k1(dev, rng, SHAPES[128])
-    k4_128 = phase_k4_d128(dev, rng)
-    k3_128, k2_128 = phase_k23(dev, rng, SHAPES[128])
+    # earlier versions of this script; then the D-128 and D-256 kernel phases.
+    timed = {}
+    for d in SHAPES:
+        if d == 64:
+            k1 = phase_k1(dev, rng, SHAPES[64])
+            k4 = phase_k4(dev, rng)
+            k3, k2 = phase_k23(dev, rng, SHAPES[64])
+            splash = phase_splash(dev, rng, k1["train_shape"], k3, k2)
+            timed[64] = dict(flash_fwd=k1, paged_decode=k4, flash_bwd_dq=k3, flash_bwd_dkv=k2)
+        else:
+            k1_d = phase_k1(dev, rng, SHAPES[d])
+            k4_d = phase_k4_big(dev, rng, d)
+            k3_d, k2_d = phase_k23(dev, rng, SHAPES[d])
+            timed[d] = dict(flash_fwd=k1_d, paged_decode=k4_d, flash_bwd_dq=k3_d, flash_bwd_dkv=k2_d)
     stats, launches = phase_engine(dev, rng, args.profile)
     prefix, p_launches = phase_prefix(dev, rng, args.profile)
-    m_serve, m_launches = phase_mistral_serve(dev, rng, args.profile)
+    m_serve, m_launches = phase_big_serve(dev, rng, "mistral7b", args.profile)
+    g_serve, g_launches = phase_big_serve(dev, rng, "gemma2b", args.profile)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
-    m_train, mt_launches = phase_mistral_train(dev, card, args.profile)
+    m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
+    g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
     # Launches by path: serve, serve_prefix and train are the 250M cells
-    # (D 64); serve_mistral7b and train_mistral7b the 7B cells (D 128).
+    # (D 64); serve_mistral7b and train_mistral7b the 7B cells (D 128);
+    # serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "train": t_launches, "serve_mistral7b": m_launches,
-             "train_mistral7b": mt_launches}
+             "train_mistral7b": mt_launches, "serve_gemma2b": g_launches, "train_gemma2b": gt_launches}
+    big_paths = {128: "mistral7b", 256: "gemma2b"}
 
-    def by_path(kernel):
-        return {p: n[kernel] for p, n in paths.items() if kernel in n}
-
-    def entry(name, source, replaces, timed, d128, **extra):
-        counts = by_path(name)
+    def entry(name, source, replaces, **extra):
+        counts = {p: n[name] for p, n in paths.items() if name in n}
         kind = {"paged_decode": "paged_decode_kernel"}.get(name, f"{name}_kernel")
-        d128 = dict(d128, launches_by_path={p: n for p, n in counts.items() if p.endswith("mistral7b")})
+        reports = ptxas.get(kind)
+        big = {}
+        for d, model in big_paths.items():
+            # K4's instances are per group (4 at Mistral-7B's heads, 8 at
+            # Gemma-2B's), the flash kernels' per head dim.
+            key = str(SHAPES[d]["h"] // SHAPES[d]["kv"]) if name == "paged_decode" else str(d)
+            big[f"d{d}"] = dict(timed[d][name], launches_by_path={p: n for p, n in counts.items() if p.endswith(model)},
+                                ptxas=None if reports is None else reports.get(key))
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=sum(counts.values()),
-                    launches_by_path=counts, ptxas=ptxas.get(kind), **timed, d128=d128, **extra)
+                    launches_by_path=counts, ptxas=reports, **timed[64][name], **big, **extra)
 
     bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [
-        entry("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu", "ray_tpu/ops/attention.py:92", k1, k1_128),
-        entry("flash_bwd_dq", bwd_src, "ray_tpu/ops/attention.py:277", k3, k3_128),
-        entry("flash_bwd_dkv", bwd_src, "ray_tpu/ops/attention.py:210", k2, k2_128),
-        entry("paged_decode", "ray_tpu_torch/ops/csrc/paged_decode.cu", "ray_tpu/ops/paged_attention.py:67", k4,
-              k4_128),
+        entry("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu", "ray_tpu/ops/attention.py:92"),
+        entry("flash_bwd_dq", bwd_src, "ray_tpu/ops/attention.py:277"),
+        entry("flash_bwd_dkv", bwd_src, "ray_tpu/ops/attention.py:210"),
+        entry("paged_decode", "ray_tpu_torch/ops/csrc/paged_decode.cu", "ray_tpu/ops/paged_attention.py:67"),
         dict(name="splash", route="onto K1-K3", source="ray_tpu_torch/ops/splash.py",
              replaces="ray_tpu/ops/splash.py:33", launches=sum(s_launches.values()),
              launches_by_kernel=s_launches, **splash),
@@ -1508,8 +1595,10 @@ def main(argv=None):
     log(json.dumps({"engine": stats}))
     log(json.dumps({"engine_prefix": prefix}))
     log(json.dumps({"engine_mistral7b": m_serve}))
+    log(json.dumps({"engine_gemma2b": g_serve}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
+    log(json.dumps({"train_gemma2b": g_train}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,18 +7,19 @@ shapes, layers stacked on a leading ``[L, ...]`` axis; a MoE tree's
 ``w_gate``/``w_up``/``w_down`` carry the expert axis after the layer axis.
 ``from_numpy_tree`` takes that tree with numpy leaves
 (``jax.tree.map(np.asarray, params)`` on the JAX side), checks every name
-and shape against the config, and returns torch tensors on ``device``, in
-the tree's own dtype. ``to_numpy_tree`` goes the other way. The JAX package
-keeps fp32 parameters and casts each one to the activation dtype at every
-matmul; the port may cast once at load instead (the engine does), which
-gives the same values.
+and shape against the config, and returns torch tensors on ``device`` (the
+GPU unless the caller asks for the CPU), in the tree's own dtype.
+``to_numpy_tree`` goes the other way. The JAX package keeps fp32
+parameters and casts each one to the activation dtype at every matmul; the
+port may cast once at load instead (the engine does), which gives the same
+values.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.transformer import TransformerConfig, param_shapes
+from ray_tpu_torch.models.transformer import TransformerConfig, param_shapes, resolve_device
 
 
 def _leaf(a, name: str, shape: tuple, device) -> torch.Tensor:
@@ -30,8 +31,11 @@ def _leaf(a, name: str, shape: tuple, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def from_numpy_tree(tree: dict, cfg: TransformerConfig, device="cpu") -> dict:
-    """numpy parameter tree -> the port's parameter tree on ``device``."""
+def from_numpy_tree(tree: dict, cfg: TransformerConfig, device=None) -> dict:
+    """numpy parameter tree -> the port's parameter tree on ``device``
+    (None: the GPU, raising when none is visible; pass ``device="cpu"`` for
+    the CPU)."""
+    device = resolve_device(device, "from_numpy_tree")
     shapes = param_shapes(cfg)
     layers = tree.get("layers", {})
     extra = (set(tree) - set(shapes)) | (set(layers) - set(shapes["layers"]))

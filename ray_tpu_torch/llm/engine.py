@@ -67,6 +67,7 @@ from ray_tpu_torch.models.transformer import (
     layer_params,
     linear,
     out_proj,
+    resolve_device,
     rms_norm,
     rope,
 )
@@ -186,14 +187,7 @@ class LLMEngine:
 
     def __init__(self, cfg: TransformerConfig, params=None,
                  engine_config: EngineConfig | None = None, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "LLMEngine runs on the GPU by default and no CUDA device is visible; "
-                    "pass device='cpu' to run on the CPU"
-                )
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device(resolve_device(device, "LLMEngine"))
         self.cfg = cfg
         self.ec = engine_config or EngineConfig()
         if cfg.n_experts:

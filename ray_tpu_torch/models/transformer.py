@@ -114,15 +114,31 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     }
 
 
+def resolve_device(device, caller: str):
+    """``device``, or the GPU when it is None: the port's entry points run on
+    the card unless the caller asks for the CPU. Raises when no CUDA device
+    is visible and none was asked for."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller} runs on the GPU by default and no CUDA device is visible; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return "cuda"
+
+
 def _dense_init(gen, shape, fan_in, dtype, device):
     return torch.randn(shape, generator=gen, dtype=dtype, device=device) / math.sqrt(fan_in)
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cpu") -> dict:
+def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> dict:
     """Stacked-layer parameter tree with the JAX tree's names, shapes and
     init scales (experts included when ``n_experts``), drawn from
-    ``generator`` (which must live on ``device``). The values differ from
-    ``ray_tpu``'s; parity tests convert weights."""
+    ``generator`` (which must live on ``device``). ``device=None`` means the
+    GPU (it raises when none is visible); pass ``device="cpu"`` for the CPU.
+    The values differ from ``ray_tpu``'s; parity tests convert weights."""
+    device = resolve_device(device, "init_params")
     pd = cfg.param_dtype
     shapes = param_shapes(cfg)
     ls = shapes["layers"]
@@ -350,11 +366,36 @@ def forward(params: dict, tokens, cfg: TransformerConfig, segment_ids=None, posi
 # Loss and train step
 # ---------------------------------------------------------------------------
 
+class _NLL(torch.autograd.Function):
+    """Per-position NLL in logsumexp form over logits kept in the activation
+    dtype, the reductions in fp32, with one fp32 copy of the logits alive at
+    a time: autograd through ``torch.logsumexp(logits.float())`` keeps the
+    copy and two more of its size for the backward, and at a 256000-entry
+    vocabulary one [8, 1024] chunk's fp32 logits are 8.4 GB. The gradient is
+    (softmax - onehot(target)) * g, summed in fp32, in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        idx = targets[..., None].long()
+        lf = logits.to(torch.float32, copy=True)  # a copy even when the logits are fp32
+        m = lf.amax(dim=-1, keepdim=True)
+        lse = lf.sub_(m).exp_().sum(dim=-1).log_().add_(m[..., 0])
+        del lf
+        ctx.save_for_backward(logits, idx, lse)
+        return lse - logits.gather(-1, idx)[..., 0].float()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, lse = ctx.saved_tensors
+        grad = logits.to(torch.float32, copy=True).sub_(lse[..., None]).exp_().mul_(g[..., None])
+        grad.scatter_add_(-1, idx, -g[..., None])
+        return grad.to(logits.dtype), None
+
+
 def _nll(logits, targets):
     """Per-position NLL in logsumexp form (no [B, S, V] log_softmax), fp32
     reductions over logits kept in the activation dtype."""
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    return lse - logits.gather(-1, targets[..., None].long())[..., 0].float()
+    return _NLL.apply(logits, targets)
 
 
 def ce_from_logits(logits, targets, mask=None):
@@ -444,13 +485,7 @@ def make_train_step(cfg: TransformerConfig, optimizer=None):
     make_opt = optimizer or adamw
 
     def init_state(generator: torch.Generator, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "init_state runs on the GPU by default and no CUDA device is visible; "
-                    "pass device='cpu' to run on the CPU"
-                )
-            device = "cuda"
+        device = resolve_device(device, "init_state")
         if cfg.attention_impl in ("auto", "flash", "splash"):  # the flash kernels on the card
             check_head_dim(cfg.head_dim, device)
         params = init_params(cfg, generator, device)

@@ -19,8 +19,9 @@ Layouts are the JAX package's: q [B, S, H, D], k/v [B, S, KV, D] with KV
 dividing H (GQA: q head h reads kv head h // (H // KV), never repeated in
 the kernels), optional segment_ids [B, S] masking attention to same-segment
 pairs. LSE and delta are fp32 [B * H, S]. The kernels are built for the head
-dims in ``HEAD_DIMS`` (64 and 128); ``check_head_dim`` is the one test of
-that, read by the kernels' wrappers and by the constructors that would
+dims in ``HEAD_DIMS`` (64, 128 and 256, the head dims the TPU kernels
+document); ``check_head_dim`` is the one test of that, read by the
+kernels' wrappers and by the constructors that would
 launch them (``LLMEngine``, ``make_train_step``'s ``init_state``), so a model
 at another head dim fails when it is built on the card, not at its first
 step. The plain versions take every D.
@@ -38,7 +39,7 @@ NEG_INF = -1e30
 
 # Head dims the CUDA kernels K1, K3 and K2 are built for (template
 # instances in csrc/flash_fwd.cu and csrc/flash_bwd.cu).
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 # Launches of each kernel (incremented where it is launched, nowhere else):
 # K1 flash forward, K3 backward dQ, K2 backward dK/dV.

@@ -13,11 +13,12 @@
 // per valid (q, k) pair and head (Q K^T and P V): at the 250M model's
 // training shape (B 16, S 2048, H 16, KV 4, D 64) 137 GFLOP against 0.02 GB
 // of inputs and outputs, at the 7B model's (B 8, S 4096, H 32, KV 8, D 128)
-// 1.1 TFLOP, both far above the card's ~295 FLOP/byte ridge. Next to the
-// products it does one exp per pair, on the special-function unit, whose
-// rate is about a quarter of the tensor cores' at D 64 (half that share at
-// D 128): the softmax must overlap the products of the other warpgroup to
-// keep them busy.
+// 1.1 TFLOP, at the 2B model's (B 8, S 4096, H 8, KV 1, D 256) 0.55 TFLOP,
+// all far above the card's ~295 FLOP/byte ridge. Next to the products it
+// does one exp per pair, on the special-function unit, whose rate is about
+// a quarter of the tensor cores' at D 64 (half that share at D 128, a
+// quarter at D 256): the softmax must overlap products, of the other
+// warpgroup or of the previous tile, to keep the tensor cores busy.
 //
 // What this design does about it (the design of K3 in flash_bwd.cu, with
 // one product fewer):
@@ -31,40 +32,46 @@
 //   transpose bit. No score or P tile is ever written to shared memory.
 // - Tiles arrive by TMA (4-D maps over the [B, S, heads, D] tensors as they
 //   are, box 64 x 1 x 64 x 1, 128-byte swizzle, zero fill past S). The
-//   block's two Q tiles come once; K/V tiles of 64 keys, with their segment
+//   block's Q tiles come once; K/V tiles of 64 keys, with their segment
 //   ids and segment range, through a 3-stage ring of full/empty mbarriers
 //   fed by one producer warp.
-// - Head dim D is a template parameter, instantiated at 64 and 128. A tile
+// - Head dim D is a template parameter, instantiated at 64, 128 and 256. A tile
 //   is D / 64 panels of 64 columns (8 KB each, one TMA box each; the 128-byte
 //   swizzle spans one 64-wide bf16 row, so a 128-wide row must be split).
-//   S = Q K^T takes D / 16 K-major k16 steps, steps 4-7 in the second panel.
+//   S = Q K^T takes D / 16 K-major k16 steps, four in each panel.
 //   O += P V, whose N is D, is issued as one m64n64k16 per panel per k16
 //   step, each reading its panel of V MN-major with the D-64 descriptor:
 //   the same descriptor arithmetic as D 64, where one m64n128k16 would need a
 //   leading-byte offset across two swizzle atoms that nothing else here
 //   uses. O is D / 64 accumulators of 32 fp32 per thread. At D 128 the block
-//   holds 2 Q tiles (32 KB) and a 3-stage K/V ring (96 KB).
-// - Three warpgroups per block: two consumers, each owning 64 of the
-//   block's 128 Q rows and sharing every K/V tile, and the producer
+//   holds 2 Q tiles (32 KB) and a 3-stage K/V ring (96 KB); at D 256 one Q
+//   tile (32 KB) and a 3-stage ring of 64 KB stages (192 KB).
+// - D 64 and 128: three warpgroups per block, two consumers, each owning 64
+//   of the block's 128 Q rows and sharing every K/V tile, and the producer
 //   warpgroup, which gives its registers to the consumers with setmaxnreg
-//   (56 vs 224 per thread).
+//   (56 vs 224 per thread). D 256: two warpgroups, one consumer owning the
+//   block's 64 Q rows and the producer, 256 threads: O alone is 128 fp32 a
+//   thread, and ptxas gives 12 warps 168 registers whatever setmaxnreg
+//   asks (8 warps: 255; the instance uses 244, no spill); two consumers'
+//   Q tiles and a 3-stage ring would not fit in 227 KB either.
 // - A one-tile software pipeline in each consumer: S of tile t is issued
 //   together with O += P V of tile t - 1 (wgmma.wait_group 1 waits for S
 //   alone), so tile t's softmax runs while the tensor cores finish P V; O
 //   is rescaled once that product is in. 16 % faster at the training shape
-//   than waiting for each product in turn (PERF.md).
+//   than waiting for each product in turn at D 64, and 1.66x at D 256,
+//   where the one consumer has no other warpgroup to overlap with (PERF.md).
 // - Masks only where needed: the diagonal tile, the ragged tail and tiles
 //   that cross a segment boundary take the MASKED instance of the softmax;
 //   every other tile the unmasked one. Tiles wholly above the diagonal are
 //   never loaded. A row that has seen no valid key keeps m = -inf and
 //   p = 0 with no (-inf) - (-inf).
-// - One block per (b * H + h, 128-row Q block); grid y runs the heaviest
+// - One block per (b * H + h, Q block of 64 rows per consumer); grid y runs the heaviest
 //   causal blocks first. No atomics: O and LSE are the same bits launch
 //   after launch.
 //
 // Layout at the interface: q/o [B, S, H, D], k/v [B, S, KV, D] (row-major,
 // contiguous, 16-byte aligned), seg [B, S] int32 or null, lse [B*H, S] fp32.
-// D must be 64 or 128. Helpers shared with K3/K2 live in sm90.cuh.
+// D must be 64, 128 or 256. Helpers shared with K3/K2 live in sm90.cuh.
 
 #include <math.h>
 
@@ -76,11 +83,26 @@ using namespace sm90;
 
 constexpr float LN2 = 0.6931471805599453f;
 
+// Tiling per head dim. NCONS consumer warpgroups each own 64 of the block's
+// Q rows; one producer warpgroup feeds a ring of NSTAGE K/V stages. D 64 and
+// 128: two consumers (the producer gives them its registers, setmaxnreg 56
+// vs 224, at 384 threads). D 256: one consumer, 256 threads, no setmaxnreg:
+// its O (128 fp32 a thread) beside S and P needs more than the 168
+// registers ptxas allows 12 warps, and two Q tiles (64 KB) beside a 3-stage
+// ring of 64 KB stages pass the 227 KB a block may have.
+template <int D>
+struct Fwd {
+  static constexpr int NCONS = D == 256 ? 1 : 2;
+  static constexpr int NSTAGE = 3;
+  static constexpr int NTHREADS = (NCONS + 1) * 128;
+};
+
 // Tiles first: every tile (BT x D bf16, 8 KB per panel) and so every panel
 // sits at a multiple of 8 KB from a 1024-byte aligned base, as the 128-byte
 // swizzle needs.
 template <int D>
 struct SmemFwd {
+  static constexpr int NCONS = Fwd<D>::NCONS, NSTAGE = Fwd<D>::NSTAGE;
   bf16 q[NCONS][BT * D];
   bf16 k[NSTAGE][BT * D];
   bf16 v[NSTAGE][BT * D];
@@ -146,7 +168,7 @@ template <int D>
 __device__ __forceinline__ void softmax_tile(float (&sc)[32], RowState& r, const SmemFwd<D>& sm, const int* segb, int t,
                                              int q0w, int own_lo, int own_hi, int S, int causal, int lane,
                                              float scale_log2, float (&alpha)[2]) {
-  const int s = t % NSTAGE, k0 = t * BT;
+  const int s = t % Fwd<D>::NSTAGE, k0 = t * BT;
   const bool masked = (causal && k0 + BT - 1 > q0w) || k0 + BT > S ||
                       (segb && !(sm.seg_lo[s] == sm.seg_hi[s] && sm.seg_lo[s] == own_lo && own_lo == own_hi));
   if (masked) {
@@ -157,6 +179,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], RowState& r, const
 }
 
 // Releases ring tile t's stage: one arrival per consumer warp.
+template <int NSTAGE>
 __device__ __forceinline__ void release(uint64_t* empty, int t, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(&empty[t % NSTAGE]);
@@ -164,11 +187,11 @@ __device__ __forceinline__ void release(uint64_t* empty, int t, int lane) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(Fwd<D>::NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg, bf16* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int KV, int causal, float scale) {
-  constexpr int NP = D / PANEL_COLS, KSTEPS = D / 16;
+  constexpr int NP = D / PANEL_COLS, KSTEPS = D / 16, NCONS = Fwd<D>::NCONS, NSTAGE = Fwd<D>::NSTAGE;
   extern __shared__ unsigned char smem_raw[];
   SmemFwd<D>& sm = *reinterpret_cast<SmemFwd<D>*>(align1024(smem_raw));
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
@@ -177,14 +200,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   if (causal) n_tiles = min(n_tiles, (q0 + NCONS * BT - 1) / BT + 1);
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-  init_barriers(sm.full, sm.empty, &sm.own);
+  init_barriers<NSTAGE>(sm.full, sm.empty, &sm.own, NCONS * 4);
 
   if (wg == NCONS) {
     // Producer warpgroup: warp 0 drives the ring, the others only give back
-    // their registers.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    // their registers (D 64, 128).
+    if constexpr (NCONS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     if (threadIdx.x / 32 % 4 == 0) {
-      load_own<D>(sm.q, nullptr, &map_q, nullptr, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
+      load_own<D, NCONS>(sm.q, nullptr, &map_q, nullptr, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % NSTAGE, k0 = t * BT;
         int sk0 = 0, sk1 = 0;
@@ -213,7 +236,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    if constexpr (NCONS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
     const int warp = (threadIdx.x / 32) % 4;
     const int q0w = q0 + wg * BT;  // this consumer's 64 rows
     const int row_a = q0w + warp * 16 + lane / 4;
@@ -276,7 +299,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       wg_wait<0>();
       reg_fence(acc_o);
       reg_fence(a_p);
-      release(sm.empty, t - 1, lane);
+      release<NSTAGE>(sm.empty, t - 1, lane);
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -293,10 +316,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       reg_fence(acc_o);
       reg_fence(a_p);
     }
-    release(sm.empty, n_mine - 1, lane);
+    release<NSTAGE>(sm.empty, n_mine - 1, lane);
     for (int t = n_mine; t < n_tiles; ++t) {
       mbar_wait(&sm.full[t % NSTAGE], (t / NSTAGE) & 1);
-      release(sm.empty, t, lane);
+      release<NSTAGE>(sm.empty, t, lane);
     }
 
     // Epilogue: the quad's shares of l, O / l in bf16, LSE in natural log.
@@ -329,8 +352,9 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
   const int smem = static_cast<int>(sizeof(SmemFwd<D>)) + 1024;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (S + NCONS * BT - 1) / (NCONS * BT));
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], static_cast<const int*>(seg),
+  constexpr int rows = Fwd<D>::NCONS * BT;
+  const dim3 grid(B * H, (S + rows - 1) / rows);
+  flash_fwd_kernel<D><<<grid, Fwd<D>::NTHREADS, smem, stream>>>(m[0], m[1], m[2], static_cast<const int*>(seg),
                                                          static_cast<bf16*>(o), static_cast<float*>(lse), S, H, KV,
                                                          causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -348,6 +372,10 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
                               int causal, float scale, void* stream) {
   if (bad_args(B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? launch<64>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st)
-                        : launch<128>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
+  switch (head_dim) {
+    case 64: return launch<64>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
+    case 128: return launch<128>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
+    case 256: return launch<256>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -7,13 +7,16 @@
 //
 // Everything is in namespace sm90; each kernel source is compiled on its own
 // (one nvcc per .cu), so nothing here is shared at link time. The flash
-// kernels use the constants below: 64-row tiles (the wgmma M), two consumer
-// warpgroups and (but in K2 at D 128) one producer warpgroup per block, a
-// ring of NSTAGE stages.
-// The head dim D is a template parameter of each flash kernel (64 or 128).
-// A 64-row tile of D columns is stored as D / 64 panels of 64 columns, each
-// panel 8 KB: one 128-byte bf16 row per tile row, the span of the 128-byte
-// swizzle, loaded by its own TMA box and read by its own wgmma descriptors.
+// kernels work on 64-row tiles (the wgmma M). How many consumer warpgroups
+// a block has, whether it has a producer warpgroup and how deep its ring
+// is depend on the kernel and the head dim: each kernel sets them per D
+// (flash_fwd.cu, flash_bwd.cu) and passes them to the helpers here as
+// template arguments.
+// The head dim D is a template parameter of each flash kernel (64, 128 or
+// 256). A 64-row tile of D columns is stored as D / 64 panels of 64
+// columns, each panel 8 KB: one 128-byte bf16 row per tile row, the span
+// of the 128-byte swizzle, loaded by its own TMA box and read by its own
+// wgmma descriptors.
 
 #pragma once
 
@@ -28,13 +31,9 @@ namespace sm90 {
 typedef __nv_bfloat16 bf16;
 
 constexpr int BT = 64;                 // rows per tile: the wgmma M
-constexpr int NCONS = 2;               // consumer warpgroups per block
-constexpr int NTHREADS = (NCONS + 1) * 128;
-constexpr int NSTAGE = 3;              // ring depth
 constexpr int PANEL_COLS = 64;         // columns of one panel: one 128-byte bf16 row
 constexpr int PANEL = BT * PANEL_COLS; // bf16 elements per panel (8 KB)
 constexpr uint32_t PANEL_BYTES = PANEL * 2;
-constexpr int CONS_WARPS = NCONS * 4;  // arrivals that release a ring stage
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- mbarriers
@@ -124,8 +123,11 @@ constexpr uint64_t MNMAJOR_STEP = 2048 >> 4;  // the same, MN-major
 constexpr uint64_t PANEL_STEP = PANEL_BYTES >> 4;  // descriptor units per panel
 
 // Descriptor offset of K-major k16 step kk over a tile's D columns: steps
-// 0-3 in panel 0, 4-7 in panel 1, 32 B apart within a panel.
+// 4p .. 4p + 3 in panel p (p < D / 64: 2 panels at D 128, 4 at D 256), 32 B
+// apart within a panel.
 __host__ __device__ constexpr uint64_t kstep(int kk) { return (kk / 4) * PANEL_STEP + (kk % 4) * KMAJOR_STEP; }
+static_assert(kstep(4) == PANEL_STEP && kstep(15) == 3 * PANEL_STEP + 3 * KMAJOR_STEP,
+              "D 256: 16 k16 steps over 4 panels");
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
@@ -146,6 +148,10 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N][32]) {
 #pragma unroll
   for (int p = 0; p < N; ++p) reg_fence(d[p]);
+}
+__device__ __forceinline__ void reg_fence(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -171,6 +177,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_WG_ACC32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SM90_WG_ACC_OPS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with B (16 x 64) MN-major in shared memory (transpose bit set):
+// A from a shared-memory tile where wgmma_rs would take it from registers.
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_WG_ACC32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : SM90_WG_ACC_OPS(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 32 fp32) = (accumulate ? d : 0) + A B^T for one k16 step, A and B
+// K-major in shared memory: a product whose N is half a 64-row tile. Element
+// i of a thread's 16 holds row warp * 16 + lane / 4 + 8 * ((i >> 1) & 1) and
+// column 8 * (i >> 2) + 2 * (lane & 3) + (i & 1).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -249,6 +279,34 @@ __device__ __forceinline__ void store_panels(const float (&acc)[NP][32], bf16* b
   for (int p = 0; p < NP; ++p) store_rows(acc[p], base + p * PANEL_COLS, rs, row_a, S, lane, s0, s1);
 }
 
+// Writes an m64n32 accumulator as bf16 into columns c0 .. c0 + 31 of a
+// 64 x 64 bf16 panel laid out as TMA writes it with the 128-byte swizzle
+// (the 16-byte chunk j of row r at chunk j ^ (r % 8)), so that wgmma can read
+// it back as a K-major operand. c0 is a multiple of 8; each thread stores
+// bf16 pairs, the 32 lanes of a store on 32 different banks.
+__device__ __forceinline__ void store_swizzled(const float (&d)[16], bf16* panel, int c0, int warp, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + lane / 4 + 8 * half;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 8 * j + 2 * (lane & 3);
+      const int chunk = (c / 8) ^ (r % 8);
+      *reinterpret_cast<__nv_bfloat162*>(panel + r * PANEL_COLS + chunk * 8 + c % 8) =
+          __floats2bfloat162_rn(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// Makes this thread's shared-memory stores visible to the async proxy (the
+// wgmma that reads them next), before the barrier that publishes them.
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `n` threads.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // Min and max of the warp's valid values (INT_MAX / INT_MIN when none).
 __device__ __forceinline__ void warp_range(int v0, bool ok0, int v1, bool ok1, int& lo, int& hi) {
   lo = min(ok0 ? v0 : INT_MAX, ok1 ? v1 : INT_MAX);
@@ -262,14 +320,14 @@ __device__ __forceinline__ void warp_range(int v0, bool ok0, int v1, bool ok1, i
 
 // ---------------------------------------------------------------- the ring
 
-// The producer's own-tile step: segment ranges of each consumer's 64 rows
-// (starting at r0), then TMA of one or two maps' tiles (mb null: one) for
-// both consumers, all on the `own` barrier (32 arrivals + the bytes).
-template <int D>
+// The producer's own-tile step: segment ranges of each of the block's NOWN
+// own 64-row tiles (starting at r0), then TMA of one or two maps' tiles (mb
+// null: one), all on the `own` barrier (32 arrivals + the bytes).
+template <int D, int NOWN>
 __device__ __forceinline__ void load_own(bf16 (*a)[BT * D], bf16 (*b)[BT * D], const CUtensorMap* ma,
                                          const CUtensorMap* mb, int head, int r0, int bidx, const int* segb,
                                          int S, int* own_lo, int* own_hi, uint64_t* bar, int lane) {
-  for (int w = 0; w < NCONS; ++w) {
+  for (int w = 0; w < NOWN; ++w) {
     const int r = r0 + w * BT + lane;
     int lo = 0, hi = 0;
     if (segb) {
@@ -281,8 +339,8 @@ __device__ __forceinline__ void load_own(bf16 (*a)[BT * D], bf16 (*b)[BT * D], c
     }
   }
   if (lane == 0) {
-    mbar_arrive_tx(bar, (mb ? 2 : 1) * NCONS * BT * D * 2);
-    for (int w = 0; w < NCONS; ++w) {
+    mbar_arrive_tx(bar, (mb ? 2 : 1) * NOWN * BT * D * 2);
+    for (int w = 0; w < NOWN; ++w) {
       tma_tile<D>(a[w], ma, bar, head, r0 + w * BT, bidx);
       if (mb) tma_tile<D>(b[w], mb, bar, head, r0 + w * BT, bidx);
     }
@@ -291,11 +349,14 @@ __device__ __forceinline__ void load_own(bf16 (*a)[BT * D], bf16 (*b)[BT * D], c
   }
 }
 
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* own) {
+// A ring of NSTAGE stages whose stage is released by one arrival of each of
+// the block's `cons_warps` consumer warps.
+template <int NSTAGE>
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* own, int cons_warps) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(&full[s], 32);           // the producer warp's lanes (lane 0 with the bytes)
-      mbar_init(&empty[s], CONS_WARPS);  // one per consumer warp
+      mbar_init(&empty[s], cons_warps);  // one per consumer warp
     }
     mbar_init(own, 32);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -345,9 +406,10 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The flash kernels' shared argument check (D 64 or 128, H a multiple of KV).
+// The flash kernels' shared argument check (D 64, 128 or 256, H a multiple
+// of KV).
 inline bool bad_args(int B, int S, int H, int KV, int head_dim) {
-  return (head_dim != 64 && head_dim != 128) || B <= 0 || S <= 0 || KV <= 0 || H % KV != 0;
+  return (head_dim != 64 && head_dim != 128 && head_dim != 256) || B <= 0 || S <= 0 || KV <= 0 || H % KV != 0;
 }
 
 }  // namespace sm90

@@ -4,9 +4,10 @@ kernel (interpret mode on the CPU): the same numpy inputs through both.
 On the CPU the port's ``flash_attention`` runs its plain version
 (``mha_reference``); kernel K1 itself runs only on the GPU, where
 ``chip_smoke.py`` and ``test_torch_cuda_kernels.py`` hold it against this
-plain version. Each test runs at head dim 64 and 128, the two head dims
-the kernels are built for (at 128 over S 128 or 200, one or two of the JAX
-kernel's 128-row blocks, to keep interpret mode quick). Tolerance: fp32 on
+plain version. Each test runs at head dim 64, 128 and 256, the head dims
+the kernels are built for (at 128 and 256 over S 128 or 200, one or two of
+the JAX kernel's 128-row blocks, to keep interpret mode quick; at 256 with
+Gemma's MQA, 8 heads over one KV head, and GQA). Tolerance: fp32 on
 both sides, only the summation order differs (blockwise online softmax vs
 one softmax), so 2e-5.
 """
@@ -22,7 +23,8 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 # (H, KV, D, S): the D-64 cases keep their ids.
 HEADS = [pytest.param(4, 4, 64, 256, id="4-4"), pytest.param(4, 2, 64, 256, id="4-2"),
          pytest.param(8, 2, 64, 256, id="8-2"), pytest.param(4, 4, 128, 128, id="4-4-d128"),
-         pytest.param(4, 2, 128, 256, id="4-2-d128"), pytest.param(8, 2, 128, 128, id="8-2-d128")]
+         pytest.param(4, 2, 128, 256, id="4-2-d128"), pytest.param(8, 2, 128, 128, id="8-2-d128"),
+         pytest.param(8, 1, 256, 128, id="8-1-d256"), pytest.param(4, 2, 256, 200, id="4-2-d256")]
 
 
 def _case(B, S, H, KV, seed, D=64):
@@ -53,7 +55,7 @@ def test_flash_matches_jax_kernel(causal, H, KV, D, S):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_lse_matches_jax_kernel(D):
     """The per-row log-sum-exp the kernel writes (for the later backward)."""
     H, KV, S = 4, 2, 256
@@ -68,7 +70,7 @@ def test_flash_lse_matches_jax_kernel(D):
     np.testing.assert_allclose(got.reshape(2 * H, S).numpy(), np.asarray(want)[:, 0, :], **TOL)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_ragged_length_matches_reference(D):
     """S not a multiple of 128: the JAX wrapper falls back to its reference;
     the port's kernel masks the ragged tail itself (same function)."""

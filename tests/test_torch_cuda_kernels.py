@@ -6,8 +6,9 @@ at the serving and training shapes, plus the engine and the training step
 end to end. Tolerances: bf16 output against an fp32 plain version on the
 same bf16 inputs, 2e-2 (bf16 ulp is 2^-8 relative); LSE in fp32, 1e-3. K1
 and K3/K2 run over GQA, MHA and MQA, pad and packed segments, ragged S and
-S under one tile, causal and not, at head dims 64 and 128 (the two
-instances of each kernel, behind one wrapper); K4 over page sizes, groups 1-8, head dims,
+S under one tile, causal and not, at head dims 64, 128 and 256 (the three
+instances of each kernel, behind one wrapper; D 256 at Gemma's heads, 8
+and 1, and GQA 8 and 2); K4 over page sizes, groups 1-8, head dims,
 B 1 (one sequence split over many blocks) and ragged batches with lengths 0,
 1, a page multiple and the full table. Each kernel gives the same bits on
 a second launch; K4's ticket counters are back at 0 after every call. The
@@ -65,13 +66,17 @@ def _close(got, want):
 # (B, S, H, KV, segments, D) of K1: GQA, MHA and MQA (H 8, KV 1); a pad
 # segment or three packed segments per row; S a multiple of the 128-row
 # block, ragged (333, 700, 1000), exactly one tile (64) and under one (33);
-# head dim 64 and, at Mistral-7B's heads (32, 8) among others, 128.
+# head dim 64, at Mistral-7B's heads (32, 8) among others 128, and at
+# Gemma's (8, 1) and GQA (8, 2) 256.
 FWD_CASES = [(1, 128, 4, 4, "pad", 64), (2, 1000, 16, 4, "pad", 64), (3, 333, 8, 2, "pad", 64),
              (2, 512, 8, 1, "pad", 64), (2, 700, 16, 4, "packed", 64), (1, 64, 4, 2, "pad", 64),
              (2, 33, 8, 2, "pad", 64),
              (1, 128, 4, 4, "pad", 128), (2, 1000, 32, 8, "pad", 128), (3, 333, 8, 2, "pad", 128),
              (2, 512, 8, 1, "pad", 128), (2, 700, 32, 8, "packed", 128), (1, 64, 4, 2, "pad", 128),
-             (2, 33, 8, 2, "pad", 128)]
+             (2, 33, 8, 2, "pad", 128),
+             (1, 128, 4, 4, "pad", 256), (2, 1000, 8, 1, "pad", 256), (3, 333, 8, 2, "pad", 256),
+             (2, 700, 8, 1, "packed", 256), (2, 1000, 8, 2, "packed", 256), (1, 64, 8, 1, "pad", 256),
+             (2, 33, 8, 2, "pad", 256)]
 
 
 @pytest.mark.parametrize("B,S,H,KV,segs,D", FWD_CASES)
@@ -91,7 +96,7 @@ def test_flash_kernel_matches_plain(dev, B, S, H, KV, segs, D, causal):
     assert (lse - lse_ref.reshape(B * H, S)).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_is_deterministic(dev, causal, D):
     """K1 has no atomics: two launches on the same inputs give the same bits."""
@@ -105,13 +110,17 @@ def test_flash_kernel_is_deterministic(dev, causal, D):
 
 # (B, S, H, KV, segments, D): GQA, MHA and MQA (H 8, KV 1); a pad segment
 # or three packed segments per row; S a multiple of the 64-row tile, ragged
-# (333, 1000, 33 < one tile) and exactly one tile (64); head dim 64 and 128.
+# (333, 1000, 33 < one tile) and exactly one tile (64); head dim 64, 128 and
+# 256 (at Gemma's heads, 8 and 1, and GQA 8 and 2).
 BWD_CASES = [(1, 128, 4, 4, "pad", 64), (2, 1000, 16, 4, "pad", 64), (3, 333, 8, 2, "pad", 64),
              (2, 512, 8, 1, "pad", 64), (2, 700, 16, 4, "packed", 64), (1, 64, 4, 2, "pad", 64),
              (2, 33, 8, 2, "pad", 64),
              (1, 128, 4, 4, "pad", 128), (2, 1000, 32, 8, "pad", 128), (3, 333, 8, 2, "pad", 128),
              (2, 512, 8, 1, "pad", 128), (2, 700, 32, 8, "packed", 128), (1, 64, 4, 2, "pad", 128),
-             (2, 33, 8, 2, "pad", 128)]
+             (2, 33, 8, 2, "pad", 128),
+             (1, 128, 4, 4, "pad", 256), (2, 1000, 8, 1, "pad", 256), (3, 333, 8, 2, "pad", 256),
+             (2, 700, 8, 1, "packed", 256), (2, 1000, 8, 2, "packed", 256), (1, 64, 8, 1, "pad", 256),
+             (2, 33, 8, 2, "pad", 256)]
 
 
 @pytest.mark.parametrize("B,S,H,KV,segs,D", BWD_CASES)
@@ -133,7 +142,7 @@ def test_flash_bwd_kernels_match_plain(dev, B, S, H, KV, segs, D, causal):
         assert ok, (name, err)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("segs", ["pad", "packed"])
 def test_flash_bwd_kernels_are_deterministic(dev, segs, D):
     """K3 and K2 sum in a fixed order (no atomics): two launches on the same
@@ -150,7 +159,7 @@ def test_flash_bwd_kernels_are_deterministic(dev, segs, D):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_autograd_runs_the_three_kernels(dev, D):
     from ray_tpu_torch.ops import attention as att
 
@@ -171,12 +180,12 @@ def test_flash_attention_autograd_runs_the_three_kernels(dev, D):
 
 
 def test_one_wrapper_dispatches_both_head_dims(dev):
-    """The same wrappers take D 64 and D 128 (each launches its own template
-    instance and agrees with the plain version) and refuse other head dims
-    before any launch."""
+    """The same wrappers take D 64, 128 and 256 (each launches its own
+    template instance and agrees with the plain version) and refuse other
+    head dims before any launch."""
     from ray_tpu_torch.ops import attention as att
 
-    for D in (64, 128, 64):
+    for D in (64, 128, 256, 64):
         q, k, v, do, seg = _qkv(dev, 1, 200, 8, 2, seed=D, D=D)
         before = (att.LAUNCHES, att.BWD_DQ_LAUNCHES, att.BWD_DKV_LAUNCHES)
         o, lse = att.flash_fwd(q, k, v, segment_ids=seg)
@@ -188,7 +197,7 @@ def test_one_wrapper_dispatches_both_head_dims(dev):
         for name, g, w in zip(("dq", "dk", "dv"), grads, want):
             ok, err = _close(g, w)
             assert ok, (D, name, err)
-    for D in (32, 256):
+    for D in (32, 512):
         q, k, v, _, _ = _qkv(dev, 1, 64, 4, 2, seed=0, D=D)
         before = att.LAUNCHES
         with pytest.raises(ValueError, match="head_dim"):
@@ -253,6 +262,20 @@ def test_paged_kernel_matches_plain(dev, B, group, ps):
 def test_paged_kernel_other_head_dims(dev, D, ps):
     """D % 8 == 0 up to 256; pages of more than 8192 elements load in tiles."""
     _check_paged(dev, _paged_lengths(9, ps, 5, seed=D), 16, 4, D, ps, 5, seed=D)
+
+
+def test_paged_kernel_at_gemma_decode_shape(dev):
+    """D 256, group 8 (Gemma-2B's 8 heads over one KV head), page 128: the
+    serving cell's decode shape (32 sequences of 2049..2176 tokens), one
+    sequence split over most of its table, and two launches bitwise equal."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    lengths = np.random.default_rng(7).integers(2049, 2177, 32)
+    o1, inputs = _check_paged(dev, lengths, 8, 1, 256, 128, 18, seed=7)
+    _check_paged(dev, _paged_lengths(1, 128, 18, seed=8), 8, 1, 256, 128, 18, seed=8)
+    o2 = pa.paged_attention(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
 
 
 def test_paged_kernel_is_deterministic_and_resets_its_counters(dev):

@@ -1,7 +1,7 @@
 """The port's LLMEngine against ray_tpu's LLMEngine on converted fp32
 weights: identical greedy tokens for a mixed batch of prompts through fewer
 slots than requests (continuous batching and slot reuse), in both KV
-layouts, at head dim 16 and 128. Then the scheduler cases of
+layouts, at head dim 16, 128 and 256. Then the scheduler cases of
 tests/test_llm.py on the port alone: EOS stops, paged admission waits for
 pages, pages recycle, abort frees; and what both engines refuse when they
 are built (an MoE model; on the card, a head dim the flash kernels are not
@@ -23,10 +23,12 @@ from ray_tpu_torch.models import TransformerConfig, make_train_step
 from ray_tpu_torch.ops.attention import HEAD_DIMS, check_head_dim
 
 SMALL = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=128)
-# head_dim 128 (the flash kernels' second instance on the card), MQA.
+# head_dim 128 and 256 (the flash kernels' second and third instances on
+# the card), MQA.
 SMALL_D128 = dict(SMALL, d_model=256, n_heads=2, n_kv_heads=1)
+SMALL_D256 = dict(SMALL, d_model=512, n_heads=2, n_kv_heads=1)
 CFG = TransformerConfig(**SMALL, dtype=torch.float32)
-MODELS = {"small": SMALL, "d128": SMALL_D128}
+MODELS = {"small": SMALL, "d128": SMALL_D128, "d256": SMALL_D256}
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +41,7 @@ def weights():
             jcfg = JaxConfig(**MODELS[model], dtype=jnp.float32, attention_impl="reference")
             tcfg = TransformerConfig(**MODELS[model], dtype=torch.float32)
             jp = jax_init(jax.random.PRNGKey(0), jcfg)
-            cache[model] = jcfg, tcfg, jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tcfg)
+            cache[model] = jcfg, tcfg, jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
         return cache[model]
 
     return get
@@ -59,7 +61,8 @@ def _drain(eng, prompts, max_tokens):
 @pytest.mark.parametrize("layout,slots,model", [
     pytest.param("paged", 3, "small", id="paged-3"), pytest.param("dense", 2, "small", id="dense-2"),
     pytest.param("paged", 4, "small", id="paged-4"), pytest.param("paged", 3, "d128", id="paged-3-d128"),
-    pytest.param("dense", 2, "d128", id="dense-2-d128")])
+    pytest.param("dense", 2, "d128", id="dense-2-d128"), pytest.param("paged", 3, "d256", id="paged-3-d256"),
+    pytest.param("dense", 2, "d256", id="dense-2-d256")])
 def test_greedy_tokens_match_jax_engine(weights, layout, slots, model):
     jcfg, tcfg, jp, tp = weights(model)
     rng = np.random.default_rng(slots)
@@ -191,7 +194,7 @@ def test_flash_head_dim_is_checked_when_built(head_dim):
     if head_dim in HEAD_DIMS:
         check_head_dim(head_dim, cuda)
         return
-    with pytest.raises(ValueError, match=f"head_dim {head_dim} .*supported: 64, 128"):
+    with pytest.raises(ValueError, match=f"head_dim {head_dim} .*supported: 64, 128, 256"):
         check_head_dim(head_dim, cuda)
     cfg = TransformerConfig(**dict(SMALL, d_model=4 * head_dim), dtype=torch.float32)
     with pytest.raises(ValueError, match=f"head_dim {head_dim}"):

@@ -16,7 +16,8 @@ einsums), gradients of magnitude <= ~20: atol/rtol 1e-4. Autograd through
 the softmax against the recompute-form custom VJP differ by more (the
 softmax backward is taken another way): 5e-4, as ``tests/test_attention.py``
 holds the JAX kernel against the JAX reference. Each test runs at head dim
-64 and 128, the two head dims the kernels are built for.
+64, 128 and 256, the head dims the kernels are built for (at 256 with
+Gemma's MQA, 8 heads over one KV head, and GQA).
 """
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,8 @@ GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
 # (H, KV, D): the D-64 cases keep their ids.
 HEADS = [pytest.param(4, 4, 64, id="4-4"), pytest.param(4, 2, 64, id="4-2"), pytest.param(8, 2, 64, id="8-2"),
          pytest.param(4, 4, 128, id="4-4-d128"), pytest.param(4, 2, 128, id="4-2-d128"),
-         pytest.param(8, 2, 128, id="8-2-d128")]
+         pytest.param(8, 2, 128, id="8-2-d128"), pytest.param(8, 1, 256, id="8-1-d256"),
+         pytest.param(4, 2, 256, id="4-2-d256")]
 
 
 def _case(B, S, H, KV, seed, D=64):
@@ -93,7 +95,7 @@ def test_autograd_matches_jax_grad_of_flash_kernel(H, KV, D, with_seg):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_ragged_length_autograd_matches_jax_reference(D):
     """S = 200, not a multiple of the JAX kernel's 128: the JAX wrapper takes
     its reference there; the port's kernels mask the ragged tail."""
@@ -108,7 +110,7 @@ def test_ragged_length_autograd_matches_jax_reference(D):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_bwd_reference_is_the_autograd_gradient_at_a_ragged_length(D):
     """The recompute form at S = 200 (the shape the kernels mask) equals
     autograd through the plain forward on the same inputs and LSE."""

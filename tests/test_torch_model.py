@@ -27,7 +27,7 @@ def _cfgs(jdt, tdt):
 
 def _params(jc, tc, seed=0):
     jp = jt.init_params(jax.random.PRNGKey(seed), jc)
-    return jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tc)
+    return jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tc, device="cpu")
 
 
 def test_rms_norm_matches():
@@ -85,7 +85,7 @@ def test_module_and_init_shapes():
     """init_params draws the JAX tree's names and shapes; the module's
     forward is the functional forward on the same tensors."""
     _, tc = _cfgs(jnp.float32, torch.float32)
-    model = tt.Transformer(tc, tt.init_params(tc, torch.Generator().manual_seed(0)))
+    model = tt.Transformer(tc, tt.init_params(tc, torch.Generator().manual_seed(0), device="cpu"))
     shapes = jax.tree.map(lambda t: tuple(t.shape), model.params())
     assert shapes == tt.param_shapes(tc)
     toks = torch.arange(10)[None] % tc.vocab_size
@@ -98,4 +98,24 @@ def test_convert_rejects_wrong_shapes():
     tree = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(0), jc))
     tree["layers"]["wq"] = tree["layers"]["wq"][:, :, :2]
     with pytest.raises(ValueError, match="layers.wq"):
-        from_numpy_tree(tree, tc)
+        from_numpy_tree(tree, tc, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_params", "from_numpy_tree"])
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(entry, monkeypatch):
+    """Like LLMEngine and make_train_step's init_state, both put a model on
+    the GPU unless the caller asks for the CPU: with no device given and no
+    GPU visible they raise, before drawing or copying anything."""
+    jc, tc = _cfgs(jnp.float32, torch.float32)
+    if entry == "init_params":
+        def call(**kw):
+            return tt.init_params(tc, torch.Generator().manual_seed(0), **kw)
+    else:
+        tree = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(0), jc))
+
+        def call(**kw):
+            return from_numpy_tree(tree, tc, **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=f"{entry} runs on the GPU by default.*device='cpu'"):
+        call()
+    assert all(t.device.type == "cpu" for t in tt.leaves(call(device="cpu")))

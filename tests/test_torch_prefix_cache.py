@@ -65,7 +65,7 @@ def models():
         cfg = TransformerConfig(**kw, dtype=torch.float32)
         tree = _numpy_params(cfg, seed=0)
         jcfg = JaxConfig(**kw, dtype=jnp.float32, attention_impl="reference")
-        out[name] = (jcfg, jax.tree.map(jnp.asarray, tree), cfg, from_numpy_tree(tree, cfg))
+        out[name] = (jcfg, jax.tree.map(jnp.asarray, tree), cfg, from_numpy_tree(tree, cfg, device="cpu"))
     return out
 
 

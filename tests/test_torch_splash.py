@@ -112,7 +112,7 @@ def test_two_layer_forward_splash_matches_flash(packed):
     jc = jt.TransformerConfig(**SMALL, dtype=jnp.float32, attention_impl="reference")
     tc = tt.TransformerConfig(**SMALL, dtype=torch.float32)
     jp = jt.init_params(jax.random.PRNGKey(7), jc)
-    params = from_numpy_tree(jax.tree.map(np.asarray, jp), tc)
+    params = from_numpy_tree(jax.tree.map(np.asarray, jp), tc, device="cpu")
     rng = np.random.default_rng(7)
     toks = rng.integers(0, SMALL["vocab_size"], (2, 48)).astype(np.int32)
     seg = (np.arange(48)[None, :] >= np.array([[20], [31]])).astype(np.int32) if packed else None

@@ -35,7 +35,7 @@ def _cfgs(**kw):
 
 def _params(jc, tc, seed=0):
     jp = jt.init_params(jax.random.PRNGKey(seed), jc)
-    return jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tc)
+    return jp, from_numpy_tree(jax.tree.map(np.asarray, jp), tc, device="cpu")
 
 
 def _batch(kind, seed=0):
@@ -147,23 +147,34 @@ def test_moe_loss_and_gradients_match_jax():
     _assert_tree_close(got_g, want_g, atol=1e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kind", ["plain", "packed"])
-def test_gradients_at_head_dim_128_match_jax(kind):
-    """head_dim 128 (d_model 256, 2 heads, one KV head), the second head dim
-    the flash kernels are built for: the loss and every leaf's gradient
-    against jax.grad on one converted tree."""
-    kw = dict(SMALL, d_model=256, n_heads=2, n_kv_heads=1)
+def _head_dim_grads_match_jax(head_dim, kind, seed):
+    """An MQA model at ``head_dim`` (2 heads, one KV head): the loss and every
+    leaf's gradient against jax.grad on one converted tree."""
+    kw = dict(SMALL, d_model=2 * head_dim, n_heads=2, n_kv_heads=1)
     jc = jt.TransformerConfig(**kw, dtype=jnp.float32, attention_impl="reference")
     tc = tt.TransformerConfig(**kw, dtype=torch.float32, attention_impl="reference")
-    assert tc.head_dim == 128
-    jp, tp = _params(jc, tc, seed=7)
-    b = _batch(kind, seed=7)
+    assert tc.head_dim == head_dim
+    jp, tp = _params(jc, tc, seed=seed)
+    b = _batch(kind, seed=seed)
     want, want_g = jax.value_and_grad(jt.cross_entropy_loss)(jp, _jb(b), jc)
     loss, _ = _grads(tp, tc, b)
     np.testing.assert_allclose(loss, float(want), **TOL)
     got_g = to_numpy_tree({k: (v.grad if k != "layers" else {n: t.grad for n, t in v.items()})
                            for k, v in tp.items()})
     _assert_tree_close(got_g, want_g, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["plain", "packed"])
+def test_gradients_at_head_dim_128_match_jax(kind):
+    """head_dim 128 (d_model 256), the second head dim the flash kernels
+    are built for."""
+    _head_dim_grads_match_jax(128, kind, seed=7)
+
+
+@pytest.mark.parametrize("kind", ["plain", "packed"])
+def test_gradients_at_head_dim_256_match_jax(kind):
+    """head_dim 256 (d_model 512, Gemma's MQA), the third."""
+    _head_dim_grads_match_jax(256, kind, seed=8)
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
@@ -181,7 +192,7 @@ def test_remat_keeps_the_gradients(policy, moe):
 def test_unknown_remat_policy_and_unported_attention_raise():
     _, tc = _cfgs()
     toks = torch.zeros(1, 8, dtype=torch.long)
-    params = tt.init_params(tc, torch.Generator().manual_seed(0))
+    params = tt.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="remat_policy"):
         tt.forward_hidden(params, toks, dataclasses.replace(tc, remat=True, remat_policy="offload"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
@@ -194,7 +205,7 @@ def test_train_steps_match_jax_adamw():
     jstate = j_init(jax.random.PRNGKey(5))
     t_init, t_step = tt.make_train_step(tc)
     tstate = t_init(torch.Generator().manual_seed(0), device="cpu")
-    start = from_numpy_tree(jax.tree.map(np.asarray, jstate["params"]), tc)
+    start = from_numpy_tree(jax.tree.map(np.asarray, jstate["params"]), tc, device="cpu")
     with torch.no_grad():
         for dst, src in zip(tt.leaves(tstate["params"]), tt.leaves(start)):
             dst.copy_(src)
@@ -211,12 +222,12 @@ def test_train_steps_match_jax_adamw():
 def test_convert_round_trips_a_moe_tree():
     jc, tc = _moe_cfgs()
     tree = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(6), jc))
-    back = to_numpy_tree(from_numpy_tree(tree, tc))
+    back = to_numpy_tree(from_numpy_tree(tree, tc, device="cpu"))
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="n_experts"):
-        from_numpy_tree(tree, _cfgs()[1])
+        from_numpy_tree(tree, _cfgs()[1], device="cpu")
 
 
 def test_init_state_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
