@@ -122,6 +122,31 @@ Phases, in order; any failure exits non-zero:
      (page 128, 32 slots: 2049 pages, 4.8 GB of KV): 32 greedy requests of
      2048 prompt tokens and 128 new tokens at once. The gates of 6c, K1 and
      K4 at D 256.
+  6e. serve-openai-250M: phase 6's model (full width and depth, seeded bf16
+     weights, paged KV, page 128, 32 slots) served as text through
+     OpenAIServer over LLMServer, whose stepping thread launches K1 and K4;
+     warmup at every prefill bucket. A byte-level BPE tokenizer trained on
+     seeded text (200 merges), saved and read back with load_tokenizer; the
+     ChatML jinja template (the legacy format where jinja2 is missing). 32
+     client threads released together, each one request of 480-512 encoded
+     prompt tokens x 64 new tokens (ignore_eos): 8 streamed /v1/completions
+     greedy, 8 streamed sampled (temperature 0.8, top_p 0.95, top_k 40), 8
+     /v1/chat/completions greedy, 8 token-id dicts through LLMServer's
+     __call__; every request carries a 60 s deadline. Then a token-level
+     stream closed after 2 frames, a chat stream read to its end and a chat
+     request with a 50 ms deadline. Gates: each of the 32 ends with 64
+     tokens inside the vocabulary and finish_reason "length" (usage for
+     chat, the last chunk for streams); every SSE frame parses and every
+     stream ends with [DONE]; the chat stream's first chunk carries the
+     assistant role; the deadline raises DeadlineExceeded; within 2 s of the
+     early close and of the deadline the engine holds no request and every
+     page is back; the stepping thread stays alive; serve.ttft_s observes
+     each of the 32 once; K1 = 12 x the prefill groups and K4 = 12 x the
+     decode steps (both > 0); the token-level requests' first tokens and
+     prefill logits against the plain forward (phase 6's tolerances).
+     Printed: client TTFT (call to first SSE frame, streams), the engine's
+     TTFT, decode and overall tokens/s, beside phase 6's engine-only
+     numbers and their ratio (the serving surface's overhead).
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -155,7 +180,8 @@ Phases, in order; any failure exits non-zero:
      ~48 GB), with the loss over sequence chunks of 1024 (ce_chunk: the
      [8, 4096, 256000] logits never exist; a fallback to them is an error).
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
-     {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"train": ...},
+     {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
+     {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
@@ -234,6 +260,20 @@ K23_EXTRA = ((2, 1000, 8, 1, "pad"), (2, 2048, H, KV, "packed"), (2, 64, H, KV, 
 # then short prompts decoding while long prompts prefill chunk by chunk.
 SYS_LEN, SEED_TAIL, HIT_TAIL, N_HIT, N_EXACT, CHUNK = 1024, 96, (64, 192), 32, 8, 512
 N_SHORT, N_LONG, LONG_LEN = 8, 2, 1536
+# Phase 6e: the serving surface (OpenAIServer over LLMServer) on phase 6's
+# model. A tokenizer trained on seeded text (a word list, then sentences of
+# its words; few merges, so it trains in seconds); OAI_PER_KIND requests of
+# each kind released together, prompts of OAI_PROMPT encoded tokens,
+# MAX_TOKENS new tokens, every wait bounded by OAI_TIMEOUT_S; then a
+# token-level stream closed after 2 frames, a chat stream read to its end
+# and a chat request with a 50 ms deadline.
+OAI_KINDS = ("completions_stream_greedy", "completions_stream_sampled", "chat_greedy", "tokens_greedy")
+OAI_PER_KIND, OAI_PROMPT, OAI_TIMEOUT_S, OAI_DEADLINE_S = 8, (480, 512), 60.0, 0.05
+OAI_SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=40)
+OAI_WORDS, OAI_SENTENCES, OAI_MERGES = 400, 300, 200
+# The ChatML template (the format Qwen-family checkpoints are tuned on).
+CHATML = ("{% for message in messages %}<|im_start|>{{ message.role }}\n{{ message.content }}<|im_end|>\n"
+          "{% endfor %}{% if add_generation_prompt %}<|im_start|>assistant\n{% endif %}")
 # Ops whose device time the profile of 6b's admission step reports (the
 # tail attention's einsums, softmax and mask; the projections' GEMMs; the
 # page copies, pool writes and context gathers).
@@ -1352,6 +1392,302 @@ def phase_big_serve(dev, rng, name, profile_dir=None):
     return stats, launches
 
 
+def _oai_text(rng, words, fits):
+    """Seeded words appended one at a time until `fits(text)` says the
+    encoded prompt is long enough (True), must stop (None) or is short
+    (False)."""
+    text = str(rng.choice(words))
+    while True:
+        ok = fits(text)
+        if ok:
+            return text
+        if ok is None:
+            raise AssertionError("a prompt passed the top of its token range")
+        text += " " + str(rng.choice(words))
+
+
+def _oai_idle(srv, what):
+    """The engine holds no request and every page is back, within 2 s."""
+    eng = srv._llm.engine
+    t_end = time.perf_counter() + 2.0
+    while True:
+        s = srv.stats()
+        pages = len(eng.free_pages)
+        if s["active_slots"] == 0 and s["waiting"] == 0 and pages == eng.ec.total_pages - 1:
+            return
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"after {what}: {s}, free pages {pages} of {eng.ec.total_pages - 1}")
+        time.sleep(0.01)
+
+
+def _oai_frames(frames, t_call):
+    """Reads an SSE stream to its end: every frame parses, the last is
+    [DONE]. Returns (chunks, seconds from the call to the first frame)."""
+    chunks, first = [], None
+    for f in frames:
+        if first is None:
+            first = time.perf_counter() - t_call
+        if not (f.startswith("data: ") and f.endswith("\n\n")):
+            raise AssertionError(f"not an SSE frame: {f!r}")
+        chunks.append(f[len("data: "):-2])
+    if chunks[-1] != "[DONE]":
+        raise AssertionError(f"stream did not end with [DONE]: {chunks[-1]!r}")
+    return [json.loads(c) for c in chunks[:-1]], first
+
+
+def phase_serve_openai(dev, engine_only):
+    """Phase 6e (serve-openai-250M): phase 6's model at full width and depth
+    served as text through OpenAIServer (tokenizer, chat template, SSE) over
+    LLMServer's stepping thread, which launches K1 and K4. `engine_only`:
+    phase 6's numbers on the same model, printed beside these."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from ray_tpu_torch import qos
+    from ray_tpu_torch.llm import EngineConfig, OpenAIServer, Tokenizer, load_tokenizer
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    rng = np.random.default_rng(6)  # its own stream: the earlier phases keep theirs
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    words = ["".join(rng.choice(letters, int(rng.integers(2, 9)))) for _ in range(OAI_WORDS)]
+    corpus = [" ".join(rng.choice(words, 12)) for _ in range(OAI_SENTENCES)]
+    try:
+        import jinja2  # noqa: F401  (OpenAIServer renders a jinja template with it)
+        template = CHATML
+    except ImportError:
+        template = None  # the legacy "role: content" format
+    cfg = TransformerConfig(**MODEL)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokenizer.json")
+        Tokenizer.train(corpus, vocab_size=3 + 256 + OAI_MERGES).save(path)
+        tok = load_tokenizer(path)
+        t_tok = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv = OpenAIServer(MODEL, dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0),
+                           tokenizer=path, model_name="serve-openai-250M",
+                           warmup_buckets=EngineConfig().prefill_buckets, chat_template=template)
+    torch.cuda.synchronize()
+    llm, eng = srv._llm, srv._llm.engine
+    log(f"serve-openai: tokenizer {tok.vocab_size} ids ({len(tok.merges)} merges, trained in {t_tok:.2f} s), "
+        f"chat template {'ChatML (jinja2)' if template else 'legacy (no jinja2)'}, server built and warmed up "
+        f"in {time.perf_counter() - t0:.2f} s")
+    lo, hi = OAI_PROMPT
+
+    def n_completion(text):
+        n = len(tok.encode(text, add_bos=True))
+        return True if lo <= n <= hi else (None if n > hi else False)
+
+    def chat(text):
+        return [{"role": "system", "content": "You answer in words."}, {"role": "user", "content": text}]
+
+    def n_chat(text):
+        prompt, templated = srv._chat_prompt(chat(text))
+        n = len(tok.encode(prompt, add_bos=not templated))
+        return True if lo <= n <= hi else (None if n > hi else False)
+
+    bodies = {}  # (kind, i) -> what the client sends
+    base = dict(max_tokens=MAX_TOKENS, ignore_eos=True, timeout_s=OAI_TIMEOUT_S)
+    for i in range(OAI_PER_KIND):
+        bodies["completions_stream_greedy", i] = dict(base, prompt=_oai_text(rng, words, n_completion),
+                                                      stream=True, temperature=0.0)
+        bodies["completions_stream_sampled", i] = dict(base, prompt=_oai_text(rng, words, n_completion),
+                                                       stream=True, **OAI_SAMPLED)
+        bodies["chat_greedy", i] = dict(base, messages=chat(_oai_text(rng, words, n_chat)), temperature=0.0)
+        ids = tok.encode(_oai_text(rng, words, lambda t: len(tok.encode(t, add_bos=True)) >= hi), add_bos=True)
+        bodies["tokens_greedy", i] = dict(tokens=ids[:hi], max_tokens=MAX_TOKENS, ignore_eos=True)
+    n_prompt = [len(tok.encode(b["prompt"], add_bos=True)) for k, b in bodies.items() if "prompt" in b]
+    n_prompt += [len(b["tokens"]) for b in bodies.values() if "tokens" in b]
+
+    # Observe without changing: each request's arrival and the engine's TTFT
+    # for it, each step's span, and the final event of every generate /
+    # generate_stream call, by client thread.
+    groups, steps, undo = _count_calls(eng)
+    finals, engine_ttft, arrivals, timeline = {}, {}, {}, []
+    step, add_request, generate, generate_stream = eng.step, eng.add_request, llm.generate, llm.generate_stream
+
+    def observed_add(rid, *a, **kw):
+        arrivals[rid] = time.perf_counter()
+        return add_request(rid, *a, **kw)
+
+    def observed_step():
+        t, n_wait, g0, s0 = time.perf_counter(), len(eng.waiting), len(groups), sum(steps)
+        events = step()
+        timeline.append((t, time.perf_counter(), n_wait, [g[0] for g in groups[g0:]], sum(steps) - s0))
+        for rid, ev in events.items():
+            if ev.get("ttft_s") is not None:
+                engine_ttft.setdefault(rid, ev["ttft_s"])
+        return events
+
+    def observed_generate(*a, **kw):
+        out = generate(*a, **kw)
+        finals[threading.current_thread().name] = out
+        return out
+
+    def observed_stream(*a, **kw):
+        it = generate_stream(*a, **kw)
+        try:
+            for ev in it:
+                if ev["finished"]:
+                    finals[threading.current_thread().name] = ev
+                yield ev
+        finally:
+            it.close()
+
+    eng.step, eng.add_request = observed_step, observed_add
+    llm.generate, llm.generate_stream = observed_generate, observed_stream
+    if not srv.check_health():
+        raise AssertionError("the stepping thread is not running")
+    results, errors = {}, []
+    barrier = threading.Barrier(len(bodies))
+
+    def client(key):
+        kind, _ = key
+        body = bodies[key]
+        try:
+            barrier.wait(timeout=OAI_TIMEOUT_S)
+            t_call = time.perf_counter()
+            if kind == "tokens_greedy":
+                with qos.request_context(timeout_s=OAI_TIMEOUT_S):
+                    results[key] = dict(out=srv._llm(body), wall_s=time.perf_counter() - t_call)
+            elif body.get("stream"):
+                chunks, first = _oai_frames(srv(body), t_call)
+                results[key] = dict(chunks=chunks, client_ttft_s=first, wall_s=time.perf_counter() - t_call)
+            else:
+                results[key] = dict(out=srv(body), wall_s=time.perf_counter() - t_call)
+        except Exception as e:  # noqa: BLE001  (raised in the main thread below)
+            errors.append((key, e))
+
+    threads = [threading.Thread(target=client, args=(key,), name=f"{key[0]}-{key[1]}") for key in bodies]
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    ttft_before = _ttft_count()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=2 * OAI_TIMEOUT_S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve-openai clients failed: {errors[:4]}")
+    main_ttft, main_steps = dict(engine_ttft), list(timeline)
+    ttft_observed = _ttft_count() - ttft_before
+    if not srv.check_health():
+        raise AssertionError("the stepping thread died during the traffic")
+
+    # Gates on the 32: 64 tokens inside the vocabulary, finish "length".
+    for key, r in results.items():
+        kind, _ = key
+        final = finals.get(f"{kind}-{key[1]}")
+        if final is None or len(final["tokens"]) != MAX_TOKENS or final["finish_reason"] != "length" or \
+                not all(0 <= t < cfg.vocab_size for t in final["tokens"]):
+            raise AssertionError(f"{key}: engine result {final}")
+        if kind == "tokens_greedy":
+            out = r["out"]
+            ok = out["tokens"] == final["tokens"] and out["finish_reason"] == "length"
+        elif kind == "chat_greedy":
+            out = r["out"]
+            ok = (out["usage"]["completion_tokens"] == MAX_TOKENS and out["choices"][0]["finish_reason"] == "length"
+                  and out["object"] == "chat.completion" and out["choices"][0]["message"]["role"] == "assistant")
+        else:
+            ch = r["chunks"]
+            ok = (ch[-1]["choices"][0]["finish_reason"] == "length" and all(c["object"] == "text_completion"
+                                                                           for c in ch)
+                  and all(c["choices"][0]["finish_reason"] is None for c in ch[:-1]))
+        if not ok:
+            raise AssertionError(f"{key}: response {r}")
+    n_req = len(results)
+    tt = sorted(main_ttft.values())
+    client_tt = sorted(r["client_ttft_s"] for r in results.values() if "client_ttft_s" in r)
+    n_tok = n_req * MAX_TOKENS
+    decode_s = t1 - t0 - max(tt)  # all released at t0; after the last first token, decode only
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # A token-level stream whose client leaves after 2 frames: aborted.
+    frames = srv._llm(dict(bodies["tokens_greedy", 0], stream=True))
+    two = [json.loads(next(frames)[len("data: "):]) for _ in range(2)]
+    frames.close()
+    if any(f["finished"] for f in two):
+        raise AssertionError(f"the stream finished within 2 frames: {two}")
+    _oai_idle(srv, "a stream closed after 2 frames")
+    # A chat stream read to its end: the first chunk carries the role.
+    chunks, _ = _oai_frames(srv(dict(bodies["chat_greedy", 0], stream=True)), time.perf_counter())
+    if chunks[0]["choices"][0]["delta"].get("role") != "assistant" or \
+            chunks[-1]["choices"][0]["finish_reason"] != "length":
+        raise AssertionError(f"chat stream: first {chunks[0]}, last {chunks[-1]}")
+    # A chat request whose deadline passes mid-decode: DeadlineExceeded, slot freed.
+    try:
+        srv(dict(bodies["chat_greedy", 1], timeout_s=OAI_DEADLINE_S))
+    except qos.DeadlineExceeded:
+        pass
+    else:
+        raise AssertionError(f"a {OAI_DEADLINE_S} s deadline did not raise DeadlineExceeded")
+    _oai_idle(srv, f"a {OAI_DEADLINE_S} s deadline")
+    if not srv.check_health():
+        raise AssertionError("the stepping thread died")
+    launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+    undo()
+    del eng.step, eng.add_request, llm.generate, llm.generate_stream  # back to the class's methods
+    want = {"flash_fwd": cfg.n_layers * len(groups), "paged_decode": cfg.n_layers * sum(steps)}
+    log(f"  launches on the main path: K1 {launches['flash_fwd']}  K4 {launches['paged_decode']} "
+        f"({len(groups)} prefill groups {sorted(g[0] for g in groups)}, {sum(steps)} decode steps; "
+        f"expected {want})")
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"serve-openai launches {launches} != {want} (or a kernel never launched)")
+    stats = dict(
+        requests=n_req, prompt_tokens=[min(n_prompt), max(n_prompt)], max_tokens=MAX_TOKENS,
+        client_ttft_p50_ms=1e3 * statistics.median(client_tt), client_ttft_p99_ms=1e3 * _pct(client_tt, 0.99),
+        ttft_p50_ms=1e3 * statistics.median(tt), ttft_p99_ms=1e3 * _pct(tt, 0.99),
+        decode_tok_s=(n_tok - n_req) / decode_s, tok_s=n_tok / (t1 - t0), wall_s=t1 - t0, peak_mem_gb=peak,
+        serve_ttft_s_observed=ttft_observed, prefill_groups=len(groups), decode_steps=sum(steps),
+        tokenizer_vocab=tok.vocab_size, chat_template="chatml-jinja" if template else "legacy",
+    )
+    log(f"serve-openai: {n_req} requests ({OAI_PER_KIND} each of {', '.join(OAI_KINDS)}), prompts "
+        f"{min(n_prompt)}-{max(n_prompt)} tokens x {MAX_TOKENS}, wall {stats['wall_s']:.3f} s, client TTFT "
+        f"(streams) p50 {stats['client_ttft_p50_ms']:.2f} ms p99 {stats['client_ttft_p99_ms']:.2f} ms, engine "
+        f"TTFT p50 {stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, decode "
+        f"{stats['decode_tok_s']:.1f} tok/s, overall {stats['tok_s']:.1f} tok/s, peak mem {peak:.2f} GB")
+    arr = sorted(1e3 * (t - t0) for rid, t in arrivals.items() if rid in main_ttft)
+    stats["arrival_ms"] = [arr[0], statistics.median(arr), arr[-1]]
+    stats["steps"] = [dict(start_ms=1e3 * (a - t0), ms=1e3 * (b - a), waiting=w, prefill_k=k, decode=n)
+                      for a, b, w, k, n in main_steps]
+    log(f"  requests reach the engine {arr[0]:.2f} / {statistics.median(arr):.2f} / {arr[-1]:.2f} ms after "
+        f"the release (first / median / last); steps (start ms, ms, waiting, prefill groups, decode steps): "
+        + " ".join(f"({1e3 * (a - t0):.1f}, {1e3 * (b - a):.1f}, {w}, {k}, {n})" for a, b, w, k, n in main_steps[:8])
+        + f" ... {len(main_steps)} steps")
+    over = {k: stats[k] / engine_only[k] for k in ("ttft_p50_ms", "wall_s")}
+    over.update({k: engine_only[k] / stats[k] for k in ("decode_tok_s", "tok_s")})
+    log(f"  phase 6 (engine alone, same model and traffic shape): TTFT p50 {engine_only['ttft_p50_ms']:.2f} ms, "
+        f"decode {engine_only['decode_tok_s']:.1f} tok/s, overall {engine_only['tok_s']:.1f} tok/s, wall "
+        f"{engine_only['wall_s']:.3f} s; the serving surface's overhead (x): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in over.items()))
+    stats["engine_only"] = {k: engine_only[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "decode_tok_s", "tok_s",
+                                                         "wall_s")}
+    stats["overhead_x"] = over
+    if ttft_observed != n_req:
+        raise AssertionError(f"serve.ttft_s observed {ttft_observed} first tokens of {n_req} requests")
+    # The token-level requests' first tokens against the plain forward.
+    keys = [("tokens_greedy", i) for i in range(OAI_PER_KIND)]
+    prompts = [np.asarray(bodies[k]["tokens"], np.int32) for k in keys]
+    done = {f"r{i}": results[k]["out"] for i, k in enumerate(keys)}
+    stats.update(check_first_tokens(cfg, eng, prompts, done, dev))
+    srv.__raytpu_exit__()
+    del srv, llm, eng
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def _ttft_count():
+    """Observations in this process's serve.ttft_s histogram."""
+    from ray_tpu_torch.util import metrics
+
+    return sum(s.get("n", 0) for s in metrics.snapshot() if s["name"] == "serve.ttft_s")
+
+
 def phase_big_train(dev, card, name, profile_dir=None):
     """Phase 7e (train-mistral7b-4L) or 7f (train-gemma2b-4L): the gradient
     check at BIG[name]'s widths (2 layers, B 1 x S 2048, K1-K3 at the
@@ -1558,14 +1894,16 @@ def main(argv=None):
     prefix, p_launches = phase_prefix(dev, rng, args.profile)
     m_serve, m_launches = phase_big_serve(dev, rng, "mistral7b", args.profile)
     g_serve, g_launches = phase_big_serve(dev, rng, "gemma2b", args.profile)
+    oai, o_launches = phase_serve_openai(dev, stats)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
-    # Launches by path: serve, serve_prefix and train are the 250M cells
-    # (D 64); serve_mistral7b and train_mistral7b the 7B cells (D 128);
-    # serve_gemma2b and train_gemma2b the 2B cells (D 256).
-    paths = {"serve": launches, "serve_prefix": p_launches, "train": t_launches, "serve_mistral7b": m_launches,
-             "train_mistral7b": mt_launches, "serve_gemma2b": g_launches, "train_gemma2b": gt_launches}
+    # Launches by path: serve, serve_prefix, serve_openai and train are the
+    # 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
+    # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
+    paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches, "train": t_launches,
+             "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
+             "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
 
     def entry(name, source, replaces, **extra):
@@ -1596,6 +1934,7 @@ def main(argv=None):
     log(json.dumps({"engine_prefix": prefix}))
     log(json.dumps({"engine_mistral7b": m_serve}))
     log(json.dumps({"engine_gemma2b": g_serve}))
+    log(json.dumps({"engine_openai": oai}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))

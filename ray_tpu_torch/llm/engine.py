@@ -73,6 +73,7 @@ from ray_tpu_torch.models.transformer import (
 )
 from ray_tpu_torch.ops.attention import check_head_dim, flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
+from ray_tpu_torch.util.tracing import child_span
 
 
 @dataclasses.dataclass
@@ -583,6 +584,15 @@ class LLMEngine:
         for n in self.block_sizes:
             toks, _, _ = self._decode(n, gen)
             toks.cpu()
+        # The runs above are greedy and take _sample's argmax shortcut: run
+        # the sampler itself at every batch it is handed (prefill groups,
+        # decode slots), or the first sampled request pays the first use of
+        # its kernels in its TTFT.
+        for k in sorted(set(k_values) | {self.ec.max_slots}):
+            ones = torch.ones(k, dtype=torch.float32, device=self.device)
+            logits = torch.zeros(k, self.cfg.vocab_size, dtype=torch.float32, device=self.device)
+            top_ks = torch.full((k,), 2, dtype=torch.int32, device=self.device)
+            sample_batch(logits, ones, ones / 2, top_ks, gen, cap=self.ec.sample_topk_cap).cpu()
         if self.paged and self.ec.prefix_cache:
             self._copy_pages([0], [0])  # the prefix cache's page copy, dead page onto itself
         # Reset device mirrors dirtied by the dummy executions.
@@ -1001,12 +1011,14 @@ class LLMEngine:
                  sampling: SamplingParams | None = None) -> dict:
         """Synchronous single-request convenience: returns {"tokens", "ttft_s"}."""
         req_id = f"g{time.monotonic_ns()}"
-        self.add_request(req_id, tokens, max_tokens, sampling=sampling)
-        ttft = None
-        while True:
-            events = self.step()
-            ev = events.get(req_id)
-            if ev and ev.get("ttft_s") is not None:
-                ttft = ev["ttft_s"]
-            if ev and ev.get("finished"):
-                return {"tokens": ev["tokens"], "ttft_s": ttft}
+        # No-op unless a trace is active in this thread.
+        with child_span("llm.engine.generate", max_tokens=max_tokens):
+            self.add_request(req_id, tokens, max_tokens, sampling=sampling)
+            ttft = None
+            while True:
+                events = self.step()
+                ev = events.get(req_id)
+                if ev and ev.get("ttft_s") is not None:
+                    ttft = ev["ttft_s"]
+                if ev and ev.get("finished"):
+                    return {"tokens": ev["tokens"], "ttft_s": ttft}
