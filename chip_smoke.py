@@ -147,6 +147,26 @@ Phases, in order; any failure exits non-zero:
      Printed: client TTFT (call to first SSE frame, streams), the engine's
      TTFT, decode and overall tokens/s, beside phase 6's engine-only
      numbers and their ratio (the serving surface's overhead).
+  6f. serve-runtime-250M: phase 6's model, weights and prompts through the
+     port's runtime (ray_tpu_torch.core): rt.init(num_cpus=4, resources
+     {"GPU": 1}, a 2 GiB object store in /dev/shm; the phase fails, naming
+     /dev/shm, if it cannot hold that). (a) CUDA tensors of 64 KiB (inlined),
+     4 MiB and 256 MiB in bf16 and fp32 through rt.put / rt.get: each must
+     come back on the card with the same bits; put and get GB/s printed
+     beside a bare .cpu() / .cuda() round trip of the same tensor. (b) A
+     num_gpus=1 task takes refs of q, k, v at phase 6's prefill shape (8 x
+     512, H 16, KV 4, D 64, bf16), runs K1 in its worker and returns o,
+     which must be bitwise equal to the driver's own K1 call on the same
+     tensors (K1 is bitwise repeatable). (c) A num_gpus=1 actor takes the
+     whole bf16 parameter tree (phase 6's seed-0 weights) as one ObjectRef,
+     builds phase 6's engine (paged, page 128, 32 slots), warms up and
+     serves phase 6's 32 x 512-token prompts x 64 greedy tokens through one
+     actor method: every request finishes, its tokens must equal phase 6's,
+     and it returns its K1 / K4 launch counts (both > 0; the path
+     serve_runtime counts the task's K1 and the actor's). Printed, not
+     gated: TTFT p50/p99, decode tok/s and wall time beside phase 6's, the
+     ref -> engine time (get, build, warmup) and the actor's peak memory.
+     rt.shutdown() ends the worker processes.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -181,7 +201,7 @@ Phases, in order; any failure exits non-zero:
      [8, 4096, 256000] logits never exist; a fallback to them is an error).
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
-     {"train": ...},
+     {"engine_runtime": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
@@ -922,6 +942,26 @@ def drive(eng, prompts, max_tokens, prefix="r"):
     return done, ttft, t0, time.perf_counter()
 
 
+def serve_stats(done, ttft, t0, t1):
+    """TTFT p50/p99, decode and overall tokens/s, wall time and peak device
+    memory of one drive() of requests that all arrived at t0."""
+    import torch
+
+    n_tok = sum(len(ev["tokens"]) for ev in done.values())
+    tt = sorted(ttft.values())
+    # Every request arrives at t0 and the last first token lands at t0 + max
+    # TTFT; from then on the engine only decodes.
+    decode_s = t1 - t0 - max(tt)
+    return dict(
+        ttft_p50_ms=1e3 * statistics.median(tt),
+        ttft_p99_ms=1e3 * _pct(tt, 0.99),
+        decode_tok_s=(n_tok - len(done)) / decode_s,
+        tok_s=n_tok / (t1 - t0),
+        wall_s=t1 - t0,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+
+
 def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02, chunk=None):
     """The engine's prefill logits against the plain forward, and each
     request's first token against the plain logits' top-1; `chunk` prompts
@@ -983,19 +1023,7 @@ def phase_engine(dev, rng, profile_dir=None):
     attention.LAUNCHES = paged_attention.LAUNCHES = 0
     done, ttft, t0, t1 = drive(eng, prompts, MAX_TOKENS)
     launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
-    n_tok = sum(len(ev["tokens"]) for ev in done.values())
-    tt = sorted(ttft.values())
-    # Every request arrives at t0 and the last first token lands at t0 + max
-    # TTFT; from then on the engine only decodes.
-    decode_s = t1 - t0 - max(tt)
-    stats = dict(
-        ttft_p50_ms=1e3 * statistics.median(tt),
-        ttft_p99_ms=1e3 * _pct(tt, 0.99),
-        decode_tok_s=(n_tok - N_REQ) / decode_s,
-        tok_s=n_tok / (t1 - t0),
-        wall_s=t1 - t0,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-    )
+    stats = serve_stats(done, ttft, t0, t1)
     log(f"engine paged: {len(done)} requests x {MAX_TOKENS} tokens, wall {stats['wall_s']:.3f} s, "
         f"TTFT p50 {stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, "
         f"decode {stats['decode_tok_s']:.1f} tok/s, overall {stats['tok_s']:.1f} tok/s, "
@@ -1024,7 +1052,8 @@ def phase_engine(dev, rng, profile_dir=None):
     if d_launch[0] == 0 or d_launch[1] != 0:
         raise AssertionError(f"dense run launches {d_launch}: expected K1 > 0 and K4 == 0")
     check_first_tokens(cfg, dense, prompts[:4], d_done, dev)
-    return stats, launches
+    tokens = {rid: list(ev["tokens"]) for rid, ev in done.items()}
+    return stats, launches, (prompts, tokens)
 
 
 def _cached_tail_logits(eng, prompt, start):
@@ -1681,6 +1710,225 @@ def phase_serve_openai(dev, engine_only):
     return stats, launches
 
 
+# Phase 6f: the port's runtime. Transport sizes in bytes (64 KiB is inlined
+# in the RPC reply, the others go through the shared-memory store), the
+# store's capacity, and the resources of the session.
+RT_SIZES = (64 << 10, 4 << 20, 256 << 20)
+RT_STORE_BYTES = 2 << 30
+RT_CPUS = 4
+RT_TIMEOUT_S = 600.0
+
+
+def _rt_transport(rt, dev):
+    """6f(a): put and get CUDA tensors of each size in bf16 and fp32; each
+    must come back on the card with the same bits. Times the put (D2H copy,
+    serialization, write into shared memory) and the get (read, H2D copy)
+    beside a bare .cpu() / .cuda() round trip of the same tensor; each the
+    median of 3."""
+    import torch
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for nbytes in RT_SIZES:
+            n = nbytes // torch.tensor([], dtype=dtype).element_size()
+            x = torch.randn(n, device=dev).to(dtype)
+            put_s, get_s, d2h_s, h2d_s = [], [], [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = rt.put(x)
+                t1 = time.perf_counter()
+                y = rt.get(ref, timeout=RT_TIMEOUT_S)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if not (y.device.type == "cuda" and y.dtype == dtype and y.shape == x.shape
+                        and torch.equal(y.view(torch.uint8), x.view(torch.uint8))):
+                    raise AssertionError(f"transport of {nbytes} B {dtype} is not bitwise equal on the card "
+                                         f"(got {y.device}, {y.dtype})")
+                del ref, y
+                t3 = time.perf_counter()
+                h = x.cpu()
+                t4 = time.perf_counter()
+                z = h.cuda()
+                torch.cuda.synchronize()
+                t5 = time.perf_counter()
+                del h, z
+                put_s.append(t1 - t0)
+                get_s.append(t2 - t1)
+                d2h_s.append(t4 - t3)
+                h2d_s.append(t5 - t4)
+            row = dict(dtype=str(dtype).removeprefix("torch."), bytes=nbytes,
+                       put_gb_s=nbytes / statistics.median(put_s) / 1e9,
+                       get_gb_s=nbytes / statistics.median(get_s) / 1e9,
+                       bare_d2h_gb_s=nbytes / statistics.median(d2h_s) / 1e9,
+                       bare_h2d_gb_s=nbytes / statistics.median(h2d_s) / 1e9)
+            rows.append(row)
+            log(f"  transport {row['dtype']:>8} {nbytes / 2**20:8.3f} MiB: put {row['put_gb_s']:.3f} GB/s  "
+                f"get {row['get_gb_s']:.3f} GB/s  (bare .cpu() {row['bare_d2h_gb_s']:.3f} GB/s, "
+                f".cuda() {row['bare_h2d_gb_s']:.3f} GB/s), bitwise equal on the card")
+            del x
+    return rows
+
+
+def _rt_k1_task(rt, dev, rng):
+    """6f(b): a num_gpus=1 task runs K1 in its worker on refs of q, k, v at
+    phase 6's prefill shape; its o must be bitwise equal to the driver's own
+    K1 call on the same tensors. Returns the task worker's K1 launches."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+
+    @rt.remote(num_gpus=1)
+    def k1_task(q, k, v):
+        import torch
+
+        from ray_tpu_torch.ops import attention
+
+        attention.LAUNCHES = 0
+        o = attention.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        return o, attention.LAUNCHES, os.getpid()
+
+    B, S = 8, PROMPT_LEN
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(np.float32)).to(dev, torch.bfloat16)
+               for h in (H, KV, KV))
+    refs = [rt.put(t) for t in (q, k, v)]
+    o, launches, pid = rt.get(k1_task.remote(*refs), timeout=RT_TIMEOUT_S)
+    mine = attention.flash_attention(q, k, v, causal=True)  # the comparison launch, off the path
+    torch.cuda.synchronize()
+    same = o.device.type == "cuda" and torch.equal(o.view(torch.int16), mine.view(torch.int16))
+    log(f"  K1 in a num_gpus=1 task (worker pid {pid}, {launches} launch) on refs of q, k, v "
+        f"[{B}, {S}, {H}/{KV}, {D}]: bitwise equal to the driver's K1: {same}")
+    if pid == os.getpid() or launches != 1 or not same:
+        raise AssertionError(f"K1 through a task: pid {pid}, launches {launches}, bitwise equal {same}")
+    return launches
+
+
+def phase_serve_runtime(dev, engine_only, phase6):
+    """Phase 6f (serve-runtime-250M): phase 6's model, weights and prompts
+    through the port's runtime: rt.init with a GPU resource, (a) CUDA tensor
+    transport, (b) K1 in a num_gpus=1 task, (c) a num_gpus=1 actor that takes
+    the whole parameter tree as one ObjectRef, builds phase 6's engine and
+    serves phase 6's 32 prompts; its tokens must equal phase 6's.
+    `engine_only`: phase 6's numbers, printed beside the actor's."""
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.models.transformer import cast_params, init_params
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    prompts, want = phase6
+    shm = "/dev/shm"
+    if os.path.isdir(shm) and shutil.disk_usage(shm).free < RT_STORE_BYTES:
+        raise RuntimeError(f"{shm} has {shutil.disk_usage(shm).free} bytes free: the object store of "
+                           f"phase 6f needs {RT_STORE_BYTES} (the 250M model's weights are 496 MB in bf16)")
+    rng = np.random.default_rng(7)  # its own stream: the earlier phases keep theirs
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS, resources={"GPU": 1}, object_store_memory=RT_STORE_BYTES)
+    try:
+        log(f"runtime: rt.init {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+        transport = _rt_transport(rt, dev)
+        attention.LAUNCHES = paged_attention.LAUNCHES = 0
+        task_k1 = _rt_k1_task(rt, dev, rng)
+
+        cfg = TransformerConfig(**MODEL)
+        gen = torch.Generator(device=dev).manual_seed(0)  # phase 6's engine draws its weights so
+        params = cast_params(init_params(cfg, gen, dev), cfg.dtype, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_ref = rt.put(params)
+        put_s = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+
+        @rt.remote(num_gpus=1)
+        class EngineActor:
+            """Phase 6's engine inside a GPU actor."""
+
+            def load(self, refs, cfg_kw, ec_kw):
+                import torch
+
+                import ray_tpu_torch as rt
+                from ray_tpu_torch.llm import EngineConfig, LLMEngine
+                from ray_tpu_torch.models import TransformerConfig
+
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params = rt.get(refs[0], timeout=RT_TIMEOUT_S)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                self.eng = LLMEngine(TransformerConfig(**cfg_kw), params=params,
+                                     engine_config=EngineConfig(**ec_kw))
+                del params
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                self.eng.warmup()
+                torch.cuda.synchronize()
+                return dict(get_s=t1 - t0, build_s=t2 - t1, warmup_s=time.perf_counter() - t2,
+                            load_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                            pid=os.getpid(), device=torch.cuda.get_device_name(0))
+
+            def serve(self, prompts, max_tokens):
+                import torch
+
+                from ray_tpu_torch.ops import attention, paged_attention
+
+                torch.cuda.reset_peak_memory_stats()  # as phase 6 does before its drive
+                attention.LAUNCHES = paged_attention.LAUNCHES = 0
+                done, ttft, t0, t1 = drive(self.eng, prompts, max_tokens)
+                launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+                tokens = {rid: list(ev["tokens"]) for rid, ev in done.items()}
+                return tokens, serve_stats(done, ttft, t0, t1), launches, _finished(done, len(prompts),
+                                                                                    MODEL["vocab_size"])
+
+        actor = EngineActor.remote()
+        ec_kw = dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0)
+        t0 = time.perf_counter()
+        loaded = rt.get(actor.load.remote([params_ref], MODEL, ec_kw), timeout=RT_TIMEOUT_S)
+        ref_to_engine_s = time.perf_counter() - t0
+        log(f"  actor (pid {loaded['pid']}, {loaded['device']}): weights put {put_s:.3f} s; ref -> engine "
+            f"{ref_to_engine_s:.3f} s (get {loaded['get_s']:.3f} s, build {loaded['build_s']:.3f} s, "
+            f"warmup {loaded['warmup_s']:.3f} s, actor start included); peak mem while loading "
+            f"{loaded['load_peak_mem_gb']:.2f} GB")
+        tokens, stats, actor_launches, finished = rt.get(actor.serve.remote(prompts, MAX_TOKENS),
+                                                         timeout=RT_TIMEOUT_S)
+        driver_launches = (attention.LAUNCHES, paged_attention.LAUNCHES)
+        launches = {"flash_fwd": task_k1 + actor_launches["flash_fwd"],
+                    "paged_decode": actor_launches["paged_decode"]}
+        equal = tokens == want
+        log(f"  actor serving: {len(tokens)} requests x {MAX_TOKENS} tokens, wall {stats['wall_s']:.3f} s "
+            f"(phase 6: {engine_only['wall_s']:.3f} s), TTFT p50 {stats['ttft_p50_ms']:.2f} ms p99 "
+            f"{stats['ttft_p99_ms']:.2f} ms (phase 6: {engine_only['ttft_p50_ms']:.2f} / "
+            f"{engine_only['ttft_p99_ms']:.2f}), decode {stats['decode_tok_s']:.1f} tok/s (phase 6: "
+            f"{engine_only['decode_tok_s']:.1f}), actor peak mem {stats['peak_mem_gb']:.2f} GB")
+        log(f"  launches on the path: K1 {launches['flash_fwd']} (task {task_k1}, actor "
+            f"{actor_launches['flash_fwd']})  K4 {launches['paged_decode']}; in the driver K1 "
+            f"{driver_launches[0]} (the comparison call) K4 {driver_launches[1]}")
+        log(f"  greedy tokens equal to phase 6's on the same weights and prompts: {equal}")
+        if not finished:
+            raise AssertionError("the actor did not finish every request with max_tokens valid tokens")
+        if not equal:
+            bad = [rid for rid in want if tokens.get(rid) != want[rid]]
+            raise AssertionError(f"the actor's tokens differ from phase 6's in {len(bad)} requests: {bad[:4]}")
+        if not (actor_launches["flash_fwd"] > 0 and actor_launches["paged_decode"] > 0):
+            raise AssertionError(f"a kernel of the actor's path was never launched: {actor_launches}")
+        rt.kill(actor)
+        del params_ref
+        out = dict(stats, ref_to_engine_s=ref_to_engine_s, weights_put_s=put_s, **{
+            f"actor_{k}": loaded[k] for k in ("get_s", "build_s", "warmup_s", "load_peak_mem_gb")},
+            transport=transport,
+            phase6=engine_only)
+    finally:
+        rt.shutdown()
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    return out, launches
+
+
 def _ttft_count():
     """Observations in this process's serve.ttft_s histogram."""
     from ray_tpu_torch.util import metrics
@@ -1890,18 +2138,20 @@ def main(argv=None):
             k4_d = phase_k4_big(dev, rng, d)
             k3_d, k2_d = phase_k23(dev, rng, SHAPES[d])
             timed[d] = dict(flash_fwd=k1_d, paged_decode=k4_d, flash_bwd_dq=k3_d, flash_bwd_dkv=k2_d)
-    stats, launches = phase_engine(dev, rng, args.profile)
+    stats, launches, phase6 = phase_engine(dev, rng, args.profile)
     prefix, p_launches = phase_prefix(dev, rng, args.profile)
     m_serve, m_launches = phase_big_serve(dev, rng, "mistral7b", args.profile)
     g_serve, g_launches = phase_big_serve(dev, rng, "gemma2b", args.profile)
     oai, o_launches = phase_serve_openai(dev, stats)
+    rt_serve, r_launches = phase_serve_runtime(dev, stats, phase6)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
-    # Launches by path: serve, serve_prefix, serve_openai and train are the
-    # 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
+    # Launches by path: serve, serve_prefix, serve_openai, serve_runtime and
+    # train are the 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
-    paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches, "train": t_launches,
+    paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
+             "serve_runtime": r_launches, "train": t_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -1935,6 +2185,7 @@ def main(argv=None):
     log(json.dumps({"engine_mistral7b": m_serve}))
     log(json.dumps({"engine_gemma2b": g_serve}))
     log(json.dumps({"engine_openai": oai}))
+    log(json.dumps({"engine_runtime": rt_serve}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))

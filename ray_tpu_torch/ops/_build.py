@@ -9,11 +9,15 @@ header is rebuilt and an unchanged one is reused. The compiler's output
 (ptxas's registers and spills) lands beside the library under the same
 name, so it always belongs to the build it sits next to.
 ``build_all`` starts one ``nvcc`` per source, all at once, waits for them
-together and says which sources it compiled.
+together and says which sources it compiled. It holds a file lock on
+``_build_out/`` while it does, and each library and log lands by
+``os.replace``, so processes that load the kernels at once (a driver and its
+GPU workers) build each source once and never load a half-written library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -66,7 +70,7 @@ def _start(name: str):
         return None
     OUT.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".so.tmp{os.getpid()}")
-    log = open(log_path(name), "w")
+    log = open(f"{tmp}.log", "w")
     proc = subprocess.Popen(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=log, stderr=subprocess.STDOUT,
@@ -79,7 +83,9 @@ def _finish(name: str, started) -> None:
     if started is None:
         return
     proc, tmp, target = started
-    if proc.wait() != 0:
+    code = proc.wait()
+    os.replace(f"{tmp}.log", log_path(name))
+    if code != 0:
         raise KernelBuildError(f"nvcc failed for {name}.cu:\n{log_path(name).read_text()}")
     os.replace(tmp, target)
 
@@ -87,7 +93,9 @@ def _finish(name: str, started) -> None:
 def build_all(names=SOURCES) -> tuple[str, ...]:
     """Compiles every named source that is not built yet, in parallel;
     returns the names it compiled (not those already built)."""
-    with _lock:
+    OUT.mkdir(parents=True, exist_ok=True)
+    with _lock, open(OUT / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         started = {n: _start(n) for n in names if n not in _libs}
         errors = []
         for n, s in started.items():

@@ -1,20 +1,33 @@
-"""QoS request context: deadline, priority class, tenant and cooperative
-cancellation, in-process.
+"""QoS plane: deadline propagation, priority classes, per-tenant fair
+queuing, and adaptive load shedding — end to end.
 
-Counterpart of ``ray_tpu.qos``'s context API (``context.py``), stdlib only.
-The serving surface reads it: ``OpenAIServer`` maps a request's
-``priority`` / ``tenant`` / ``timeout_s`` into a :class:`RequestContext`,
-and ``LLMServer.generate`` caps its wait at the deadline and aborts the
-engine request when the deadline passes or the caller's cancel event is
-set. The fair wait queue and the admission controller belong to serve and
-come with the runtime.
+The serving path's overload story (what the reference's serve stack lacks):
 
-Usage::
+* :class:`RequestContext` (``priority`` | ``tenant`` | absolute
+  ``deadline``) carried by contextvar in-process and riding the task-spec /
+  lean-frame mechanism cross-process (``context.py``);
+* deadline enforcement at every hop — proxy HTTP queue, handle admission
+  queue, worker dispatch, replica inbox — each dropping already-expired
+  requests with a typed :class:`DeadlineExceeded`, counted on
+  ``serve.request.expired_total{hop}``, and cancel propagation so a caller
+  that gave up frees its replica slot (``cancel_requested()``);
+* :class:`FairWaitQueue` — strict priority between classes, deficit-round-
+  robin across tenants within a class, FIFO within a tenant — the serve
+  handle's admission queue (``fair_queue.py``);
+* :class:`AdmissionController` — AIMD concurrency limit driven by observed
+  queue delay (CoDel-style), shedding ``best_effort``/``batch`` first with
+  ``429 + Retry-After`` at the proxy (``admission.py``).
+
+Usage (client side)::
 
     from ray_tpu_torch import qos
     with qos.request_context(priority="batch", tenant="team-a", timeout_s=5):
-        server.generate(tokens)
+        handle.remote(payload).result()
+
+or over HTTP: ``x-priority`` / ``x-tenant`` / ``x-request-timeout-s``
+headers on any proxied request.
 """
+from ray_tpu_torch.qos.admission import AdmissionController
 from ray_tpu_torch.qos.context import (
     DEFAULT_PRIORITY,
     DEFAULT_TENANT,
@@ -41,15 +54,19 @@ from ray_tpu_torch.qos.context import (
     suspend,
     to_wire,
 )
+from ray_tpu_torch.qos.fair_queue import FairWaitQueue, Waiter
 
 __all__ = [
+    "AdmissionController",
     "DEFAULT_PRIORITY",
     "DEFAULT_TENANT",
     "DeadlineExceeded",
     "MAX_CLIENT_TIMEOUT_S",
+    "FairWaitQueue",
     "PRIORITIES",
     "RequestCancelled",
     "RequestContext",
+    "Waiter",
     "activate",
     "cancel_event",
     "cancel_requested",

@@ -1,19 +1,29 @@
-"""Request context: priority class, tenant, absolute deadline, and the
-cooperative cancel event of the executing request.
+"""Request context: priority class, tenant, absolute deadline — the unit the
+QoS plane propagates end to end.
 
-Counterpart of ``ray_tpu/qos/context.py``, stdlib only. A request carries a
-:class:`RequestContext`: ``priority`` (``interactive`` > ``batch`` >
-``best_effort``), ``tenant`` (the fair-queuing key) and an ABSOLUTE
-``deadline`` on the shared ``tracing.now()`` clock, derived once from the
-client's ``timeout_s``. A hop that finds the deadline passed drops the
-request with a typed :class:`DeadlineExceeded`, counted on
-``serve.request.expired_total{hop,class}``, never silently; a caller that
-gave up sets the request's cancel event (:func:`cancel_requested`).
+Reference gap this fills: Ray Serve bounds replicas with
+``max_ongoing_requests`` and queues excess in the router, but a request's
+``timeout_s`` dies at the first hop and nothing distinguishes an interactive
+user from a batch backfill — under sustained overload every class degrades
+together. Here every serve request carries a :class:`RequestContext`:
+
+* ``priority``: ``interactive`` > ``batch`` > ``best_effort`` — strict
+  priority between classes at every queue, and the shedding order under
+  overload (lowest class sheds first).
+* ``tenant``: fair-queuing key — deficit-round-robin across tenants within
+  a class so one tenant's flood cannot starve another's trickle.
+* ``deadline``: ABSOLUTE time on the shared ``tracing.now()`` clock, derived
+  once from the client's ``timeout_s`` at ingress. Every hop (proxy queue,
+  handle admission, worker dispatch, replica inbox) drops already-expired
+  requests with a typed :class:`DeadlineExceeded` — counted
+  (``serve.request.expired_total{hop}``), never silently — so a request
+  whose caller gave up stops consuming capacity instead of burning a
+  replica slot to completion.
 
 In-process the context rides a contextvar (one ``ContextVar.get`` on the
-quiet path). The compact wire tuple (``to_wire`` / ``from_wire`` /
-``activate``) is kept for the runtime, which will carry it across
-processes.
+quiet path); cross-process it rides the task-spec / lean-frame mechanism as
+a compact wire tuple (``TaskSpec.qos_ctx`` / the ``"qc"`` payload key) —
+the same scheme as the tracing context, no wire-version bump.
 """
 from __future__ import annotations
 
@@ -220,14 +230,18 @@ def parse_timeout_s(value) -> float:
 
 def raise_expired(hop: str, detail: str = "") -> None:
     """THE expiry exit: count (``serve.request.expired_total{hop,class}``),
-    drop a point event onto the active trace, raise typed. Every hop that
-    drops an expired request goes through here — no silent expiry. (The
-    reference also tees the expiry into its flight recorder; that recorder
-    comes with the runtime.)"""
+    drop a point event onto the active trace, tee into the flight recorder
+    (whose deadline-storm detector dumps the ring when expiries burst), raise
+    typed. Every hop that drops an expired request goes through here — no
+    silent expiry (machine-enforced by graftlint rule ``counted-sheds``)."""
     ctx = _ctx.get()
     klass = ctx.priority if ctx is not None else DEFAULT_PRIORITY
     _expired_total.inc(tags={"hop": hop, "class": klass})
     _tracing.event("qos.expired", hop=hop)
+    from ray_tpu_torch.obs import flight as _flight
+
+    _flight.record("qos.expired", hop=hop, cls=klass, detail=detail)
+    _flight.note_expiry()
     raise DeadlineExceeded(
         f"request deadline exceeded at hop {hop!r}{': ' + detail if detail else ''}"
     )

@@ -4,8 +4,9 @@
 
 Counterpart of ``ray_tpu/serve/proxy.py``'s two request/response classes,
 stdlib only. The proxy itself (the HTTP server routing requests to
-deployments) comes with the runtime; until then a caller builds a
-``Request`` and hands it to the deployment in-process.
+deployments) comes with serve on the port's runtime (ROADMAP Queue 1 item
+4); until then a caller builds a ``Request`` and hands it to the deployment
+in-process or through an actor.
 """
 from __future__ import annotations
 

@@ -1,3 +1,4 @@
-"""ray_tpu_torch.util: the metrics registry and the tracing span API (stdlib
-only; counterparts of ``ray_tpu.util.metrics`` and the span API of
-``ray_tpu.util.tracing``)."""
+"""ray_tpu_torch.util: the metrics registry, tracing (spans, the task-event
+buffer, timeline export) and background-task helpers (stdlib only;
+counterparts of ``ray_tpu.util.metrics``, ``ray_tpu.util.tracing`` and
+``ray_tpu.util.bgtasks``)."""

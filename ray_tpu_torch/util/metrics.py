@@ -1,10 +1,11 @@
-"""Metrics API: Counter / Gauge / Histogram, a per-process registry.
+"""User-facing metrics API: Counter / Gauge / Histogram.
 
-Counterpart of ``ray_tpu/util/metrics.py``, stdlib only. Every series lives
-in this process's registry; ``snapshot`` dumps it and ``prometheus_text``
-renders a list of dumped series. Nothing ships the registry to a controller
-yet: the port has no runtime, so, as in the reference with no core worker,
-the series stay in the process that records them.
+Role-equivalent to the reference's ray.util.metrics (python/ray/util/metrics.py
+over the C++ OpenCensus/OpenTelemetry recorder, src/ray/stats/metric.h:25 and
+observability/open_telemetry_metric_recorder.h). Redesign: a per-process
+registry; every CoreWorker ships a snapshot to the controller on a short
+timer; the controller aggregates across processes and serves the merged view
+(dashboard JSON + Prometheus text exposition).
 """
 from __future__ import annotations
 
@@ -109,7 +110,8 @@ class _BoundHistogram:
 
 
 def snapshot() -> list[dict]:
-    """Serializable dump of this process's metric series."""
+    """Serializable dump of this process's metric series (shipped to the
+    controller by the CoreWorker reporter)."""
     out = []
     with _lock:
         for (_name, _tags), s in _registry.items():

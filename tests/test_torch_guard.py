@@ -1,7 +1,9 @@
 """The port stands alone: importing ray_tpu_torch (the serving surface
 included) brings in neither jax nor any ray_tpu module, its stdlib-only
-modules (tokenizer, metrics, tracing, qos, the HTTP types) bring in no
-torch, and its engine runs on the GPU unless told otherwise."""
+modules (tokenizer, metrics, tracing, qos, the HTTP types) and its runtime
+(core, obs, chaos, accel) bring in no torch, its engine runs on the GPU
+unless told otherwise, and a worker process of a port cluster loads neither
+jax nor any ray_tpu module."""
 import subprocess
 import sys
 from pathlib import Path
@@ -12,7 +14,13 @@ _PROBE = """
 import sys
 import ray_tpu_torch.llm.tokenizer, ray_tpu_torch.util.metrics, ray_tpu_torch.util.tracing, ray_tpu_torch.qos
 import ray_tpu_torch.serve.proxy
+import ray_tpu_torch, ray_tpu_torch.core, ray_tpu_torch.core.api, ray_tpu_torch.core.worker_main
+import ray_tpu_torch.core.node, ray_tpu_torch.core.controller, ray_tpu_torch.state
+import ray_tpu_torch.obs, ray_tpu_torch.obs.profiler, ray_tpu_torch.chaos, ray_tpu_torch.accel
 assert "torch" not in sys.modules, "a stdlib-only module imported torch"
+assert "jax" not in sys.modules, "the runtime imported jax"
+leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]
+assert not leaked, leaked
 import ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, ray_tpu_torch.models, ray_tpu_torch.convert
 import ray_tpu_torch.llm.deployment, ray_tpu_torch.llm.openai, ray_tpu_torch.llm.batch, ray_tpu_torch.util
 from ray_tpu_torch.llm import LLMServer, OpenAIServer, Tokenizer, load_tokenizer
@@ -41,3 +49,37 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() in ("raised", "cuda")
+
+
+_WORKER_PROBE = """
+import sys
+import ray_tpu_torch as rt
+rt.init(num_cpus=1)
+try:
+    @rt.remote
+    def modules():
+        import sys
+        return sorted(sys.modules)
+
+    mods = rt.get(modules.remote(), timeout=120)
+    assert "ray_tpu_torch.core.worker_main" in mods or "ray_tpu_torch.core.worker" in mods, mods
+    bad = [m for m in mods if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+    assert not bad, bad
+    assert "torch" not in mods, "a worker imported torch at start-up"
+    bad = [m for m in sys.modules if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+    assert not bad, bad
+finally:
+    rt.shutdown()
+print("clean")
+"""
+
+
+def test_port_worker_loads_no_jax_and_no_ray_tpu():
+    """A task on a port cluster reports its worker's sys.modules: the node
+    daemon spawns the port's own worker_main, which imports neither jax nor
+    torch at start-up (the repo's test harness sets the variable that makes
+    ``ray_tpu``'s workers import jax; the port's ignore it)."""
+    out = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"
