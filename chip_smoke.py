@@ -167,6 +167,33 @@ Phases, in order; any failure exits non-zero:
      gated: TTFT p50/p99, decode tok/s and wall time beside phase 6's, the
      ref -> engine time (get, build, warmup) and the actor's peak memory.
      rt.shutdown() ends the worker processes.
+  6g. serve-app-250M: phase 6's model through serve on the runtime:
+     rt.init(num_cpus=8, resources {"GPU": 1}, the 2 GiB store), then
+     serve.start() (controller and HTTP proxy). (a) build_llm_app with
+     params=rt.put(phase 6's seed-0 bf16 tree), two replicas of
+     ray_actor_options {"num_gpus": 0.5} (two replicas share the card),
+     warmup at every bucket, serve.run(http=False); phase 6's 32 x
+     512-token prompts x 64 greedy tokens sent at once through the handle.
+     Gates: every request finishes with 64 tokens inside the vocabulary,
+     its tokens equal phase 6's, each replica served at least one request,
+     and K1 > 0 and K4 > 0 counted in each replica's own process (the
+     deployment class is the builder's LLMServer wrapped by _counted, which
+     only observes); then serve.delete frees the GPU share. (b)
+     build_openai_app at route "/", one replica of num_gpus 1, phase 6e's
+     seeded tokenizer and ChatML template; 32 client threads released
+     together POST to the proxy: 8 streamed and 8 unstreamed greedy
+     /v1/completions on the same prompts, 4 streamed and 4 unstreamed
+     sampled, 4 streamed and 4 unstreamed greedy /v1/chat/completions
+     (480-512 prompt tokens x 64, ignore_eos). Gates: every response is
+     200, every SSE line parses and each stream ends with [DONE], each
+     completion ends by "length" (64 tokens) or "stop", the greedy streamed
+     text equals the unstreamed text of its prompt, the replica took the 32
+     and launched K1 and K4, and a request with x-request-timeout-s 0.0001
+     gets 504 (the typed deadline, end to end). Printed, not gated:
+     serve.run -> healthy for (a) and (b), engine TTFT, client TTFT over
+     HTTP beside 6e's in-process client TTFT, decode and overall tok/s, each
+     replica's peak memory and K1 / K4 launches. A deployment that does not
+     become healthy within 600 s fails the phase, naming its status.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -201,7 +228,7 @@ Phases, in order; any failure exits non-zero:
      [8, 4096, 256000] logits never exist; a fallback to them is an error).
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
-     {"engine_runtime": ...}, {"train": ...},
+     {"engine_runtime": ...}, {"engine_serve_app": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
@@ -1464,6 +1491,16 @@ def _oai_frames(frames, t_call):
     return [json.loads(c) for c in chunks[:-1]], first
 
 
+def _oai_corpus():
+    """Phase 6e's seeded word list and tokenizer training text, and the
+    random stream after them (6e draws its prompts from it)."""
+    rng = np.random.default_rng(6)  # its own stream: the earlier phases keep theirs
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    words = ["".join(rng.choice(letters, int(rng.integers(2, 9)))) for _ in range(OAI_WORDS)]
+    corpus = [" ".join(rng.choice(words, 12)) for _ in range(OAI_SENTENCES)]
+    return rng, words, corpus
+
+
 def phase_serve_openai(dev, engine_only):
     """Phase 6e (serve-openai-250M): phase 6's model at full width and depth
     served as text through OpenAIServer (tokenizer, chat template, SSE) over
@@ -1479,10 +1516,7 @@ def phase_serve_openai(dev, engine_only):
     from ray_tpu_torch.models import TransformerConfig
     from ray_tpu_torch.ops import attention, paged_attention
 
-    rng = np.random.default_rng(6)  # its own stream: the earlier phases keep theirs
-    letters = list("abcdefghijklmnopqrstuvwxyz")
-    words = ["".join(rng.choice(letters, int(rng.integers(2, 9)))) for _ in range(OAI_WORDS)]
-    corpus = [" ".join(rng.choice(words, 12)) for _ in range(OAI_SENTENCES)]
+    rng, words, corpus = _oai_corpus()
     try:
         import jinja2  # noqa: F401  (OpenAIServer renders a jinja template with it)
         template = CHATML
@@ -1929,6 +1963,342 @@ def phase_serve_runtime(dev, engine_only, phase6):
     return out, launches
 
 
+# Phase 6g: serve on the runtime. The session's CPUs; how long a deployment
+# may take to become healthy (its replicas start one after another, each
+# fetching the weights, building its engine and warming up every prefill
+# bucket); (a)'s replicas and their share of the card; (b)'s HTTP clients
+# (APP_HTTP kinds, how many of each) and the deadline header of the 504.
+APP_CPUS, APP_READY_S, APP_REPLICAS, APP_GPU_SHARE = 8, 600.0, 2, 0.5
+APP_HTTP = (("completions_stream_greedy", 8), ("completions_greedy", 8), ("completions_stream_sampled", 4),
+            ("completions_sampled", 4), ("chat_stream_greedy", 4), ("chat_greedy", 4))
+APP_DEADLINE_HEADER = "0.0001"
+
+
+def _counted(base):
+    """A deployment class around `base` (LLMServer or OpenAIServer) whose
+    replica reports the K1 / K4 launches of its own process, the requests
+    its __call__ took and the engine's TTFT of each (observed on the
+    engine's step events, as phase 6e observes, never changes), and can set
+    them back to 0; also the wall-clock span of its server's construction
+    (weights, engine, warmup)."""
+
+    class Counted(base):
+        def __init__(self, *args, **kwargs):
+            t0 = time.time()
+            super().__init__(*args, **kwargs)
+            self._init_wall = (t0, time.time())
+            eng = self.engine if hasattr(self, "engine") else self._llm.engine
+            step, self._ttft, self._served = eng.step, {}, 0
+
+            def observed_step():
+                events = step()
+                for rid, ev in events.items():
+                    if ev.get("ttft_s") is not None:
+                        self._ttft.setdefault(rid, ev["ttft_s"])
+                return events
+
+            eng.step = observed_step
+
+        def __call__(self, request):
+            self._served += 1
+            return super().__call__(request)
+
+        def kernel_counts(self, reset=False):
+            import torch
+
+            from ray_tpu_torch.ops import attention, paged_attention
+
+            out = dict(flash_fwd=attention.LAUNCHES, paged_decode=paged_attention.LAUNCHES,
+                       served=self._served, pid=os.getpid(),
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ttft_s=list(self._ttft.values()),
+                       init_wall=self._init_wall)
+            if reset:
+                attention.LAUNCHES = paged_attention.LAUNCHES = 0
+                self._served = 0
+                self._ttft = {}
+                torch.cuda.reset_peak_memory_stats()
+            return out
+
+    Counted.__name__ = Counted.__qualname__ = f"Counted{base.__name__}"
+    return Counted
+
+
+def _app_run(rt, serve, app, counted, name, **kw):
+    """serve.run of `app` with its class swapped for `counted` (the options
+    and arguments its builder gave stay), bounded by APP_READY_S; a
+    deployment that does not become healthy fails the phase, naming its
+    status. Returns (handle, seconds to ready, the replica actors, the
+    wall-clock time serve.run began)."""
+    app.deployment = dataclasses.replace(app.deployment, func_or_class=counted)
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    try:
+        handle = serve.run(app, name=name, timeout_s=APP_READY_S, **kw)
+    except TimeoutError as e:
+        raise AssertionError(f"serve app {name!r}: a replica did not become healthy within "
+                             f"{APP_READY_S} s ({e})") from e
+    ready_s = time.perf_counter() - t0
+    info = rt.get(serve.api._get_controller().get_routing_info.remote(name, app.deployment.name), timeout=60)
+    replicas = [rt.get_actor(n, namespace="serve") for n in info["replica_names"]]
+    return handle, ready_s, replicas, t_wall
+
+
+def _app_counts(rt, replicas, reset=False, since=None):
+    """Each replica's kernel_counts; with `since` (the wall-clock start of
+    serve.run), its construction span as seconds after it (init_s)."""
+    counts = [rt.get(r.handle_request.remote("kernel_counts", (), {"reset": reset}), timeout=60) for r in replicas]
+    for c in counts:
+        a, b = c.pop("init_wall")
+        if since is not None:
+            c["init_s"] = [a - since, b - since]
+    return counts
+
+
+def _app_post(port, path, body, headers=None):
+    """One POST to the proxy. A stream is read line by line as it arrives:
+    returns (status, payloads of its data lines, seconds to the first data
+    line); otherwise (status, the JSON body, None)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=RT_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, json.dumps(body), {"content-type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        if not body.get("stream") or resp.status != 200:
+            return resp.status, json.loads(resp.read() or b"null"), None
+        frames, first = [], None
+        for line in iter(resp.readline, b""):
+            if line.startswith(b"data: "):
+                first = first if first is not None else time.perf_counter() - t0
+                frames.append(line[len(b"data: "):].strip().decode())
+            elif line.strip():
+                raise AssertionError(f"not an SSE line: {line!r}")
+        return resp.status, frames, first
+    finally:
+        conn.close()
+
+
+def _app_text(kind, payload):
+    """(text, finish_reason, completion tokens or None) of one response."""
+    if "stream" in kind:
+        if not payload or payload[-1] != "[DONE]":
+            raise AssertionError(f"{kind}: stream did not end with [DONE]: {payload[-1:]}")
+        chunks = [json.loads(f) for f in payload[:-1]]
+        key = "delta" if kind.startswith("chat") else None
+        text = "".join(c["choices"][0][key].get("content", "") if key else c["choices"][0]["text"]
+                       for c in chunks)
+        return text, chunks[-1]["choices"][0]["finish_reason"], None
+    choice = payload["choices"][0]
+    text = choice["message"]["content"] if kind.startswith("chat") else choice["text"]
+    return text, choice["finish_reason"], payload["usage"]["completion_tokens"]
+
+
+def phase_serve_app(dev, engine_only, phase6, oai):
+    """Phase 6g (serve-app-250M): phase 6's model served through serve on the
+    runtime: (a) build_llm_app from one weights ObjectRef, two replicas of
+    half the card each, phase 6's 32 prompts through the handle (tokens must
+    equal phase 6's); (b) build_openai_app behind the HTTP proxy, 32 client
+    threads over HTTP, and a 504 for an expired request. `engine_only`,
+    `oai`: phases 6 and 6e's numbers, printed beside these."""
+    import tempfile
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.llm import EngineConfig, LLMServer, OpenAIServer, Tokenizer, load_tokenizer
+    from ray_tpu_torch.llm import build_llm_app, build_openai_app
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.models.transformer import cast_params, init_params
+
+    prompts, want = phase6
+    rng = np.random.default_rng(8)  # its own stream: the earlier phases keep theirs
+    cfg = TransformerConfig(**MODEL)
+    ec = dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0)
+    buckets = EngineConfig().prefill_buckets
+    t0 = time.perf_counter()
+    rt.init(num_cpus=APP_CPUS, resources={"GPU": 1}, object_store_memory=RT_STORE_BYTES)
+    try:
+        serve.start()
+        log(f"serve-app: rt.init + serve.start (controller, HTTP proxy on port {serve.http_port()}) "
+            f"{time.perf_counter() - t0:.2f} s")
+        # (a) build_llm_app from a weights ObjectRef: two replicas share the card.
+        gen = torch.Generator(device=dev).manual_seed(0)  # phase 6's engine draws its weights so
+        params_ref = rt.put(cast_params(init_params(cfg, gen, dev), cfg.dtype, dev))
+        torch.cuda.empty_cache()
+        app = build_llm_app(MODEL, ec, num_replicas=APP_REPLICAS, warmup_buckets=buckets,
+                            ray_actor_options={"num_gpus": APP_GPU_SHARE}, params=params_ref)
+        handle, ready_a, replicas, t_run = _app_run(rt, serve, app, _counted(LLMServer), "serve_app_llm",
+                                                    http=False)
+        if len(replicas) != APP_REPLICAS:
+            raise AssertionError(f"(a) has {len(replicas)} replicas, not {APP_REPLICAS}")
+        init_a = [c["init_s"] for c in _app_counts(rt, replicas, reset=True, since=t_run)]
+        log(f"  (a) build_llm_app, {len(replicas)} replicas x num_gpus {APP_GPU_SHARE}, weights by ObjectRef: "
+            f"serve.run -> healthy {ready_a:.2f} s; each replica's LLMServer (get, engine, warmup) built from "
+            + ", ".join(f"+{a:.2f} to +{b:.2f} s" for a, b in init_a))
+        t0 = time.perf_counter()
+        resps = [handle.remote({"tokens": p.tolist(), "max_tokens": MAX_TOKENS}) for p in prompts]
+        outs = [r.result(timeout=RT_TIMEOUT_S) for r in resps]
+        t1 = time.perf_counter()
+        counts_a = _app_counts(rt, replicas)
+        for c in counts_a:
+            del c["ttft_s"]  # (a)'s engine TTFTs come with the responses
+        done = {f"r{i}": o for i, o in enumerate(outs)}
+        tokens = {rid: list(o["tokens"]) for rid, o in done.items()}
+        tt = sorted(o["ttft_s"] for o in outs)
+        n_tok = sum(len(t) for t in tokens.values())
+        stats_a = dict(ready_s=ready_a, replica_init_s=init_a, ttft_p50_ms=1e3 * statistics.median(tt), ttft_p99_ms=1e3 * _pct(tt, 0.99),
+                       decode_tok_s=(n_tok - len(outs)) / (t1 - t0 - tt[-1]), tok_s=n_tok / (t1 - t0),
+                       wall_s=t1 - t0, replicas=counts_a)
+        bad = [rid for rid in want if tokens.get(rid) != want[rid]]
+        log(f"  (a) {len(outs)} requests x {MAX_TOKENS} tokens through the handle, wall {stats_a['wall_s']:.3f} s "
+            f"(phase 6: {engine_only['wall_s']:.3f} s), engine TTFT p50 {stats_a['ttft_p50_ms']:.2f} ms p99 "
+            f"{stats_a['ttft_p99_ms']:.2f} ms, decode {stats_a['decode_tok_s']:.1f} tok/s (phase 6: "
+            f"{engine_only['decode_tok_s']:.1f}); tokens equal to phase 6's in {len(want) - len(bad)}/{len(want)}")
+        for c in counts_a:
+            log(f"    replica pid {c['pid']}: served {c['served']}, K1 {c['flash_fwd']}, K4 {c['paged_decode']}, "
+                f"peak mem {c['peak_mem_gb']:.2f} GB")
+        if not _finished(done, N_REQ, cfg.vocab_size):
+            raise AssertionError("(a) did not finish every request with max_tokens valid tokens")
+        if bad:
+            raise AssertionError(f"(a) tokens differ from phase 6's in {len(bad)} requests: {bad[:4]}")
+        for c in counts_a:
+            if c["served"] < 1 or c["flash_fwd"] == 0 or c["paged_decode"] == 0:
+                raise AssertionError(f"(a) replica pid {c['pid']} served {c['served']} requests with K1 "
+                                     f"{c['flash_fwd']} K4 {c['paged_decode']}: every replica must serve and "
+                                     "launch both kernels")
+        serve.delete("serve_app_llm")
+        del params_ref, handle, replicas
+        t_end = time.perf_counter() + 120
+        while rt.available_resources().get("GPU", 0.0) < 1.0:
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"serve.delete left the GPU share taken: {rt.available_resources()}")
+            time.sleep(0.1)
+
+        # (b) build_openai_app behind the HTTP proxy: one replica, the whole card.
+        _, words, corpus = _oai_corpus()
+        try:
+            import jinja2  # noqa: F401  (the replica's OpenAIServer renders the template with it)
+            template = CHATML
+        except ImportError:
+            template = None  # the legacy "role: content" format
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "tokenizer.json")
+            Tokenizer.train(corpus, vocab_size=3 + 256 + OAI_MERGES).save(path)
+            tok = load_tokenizer(path)
+            app = build_openai_app(MODEL, ec, tokenizer=path, model_name="serve-app-250M", warmup_buckets=buckets,
+                                   ray_actor_options={"num_gpus": 1}, chat_template=template)
+            _, ready_b, replicas, t_run = _app_run(rt, serve, app, _counted(OpenAIServer), "serve_app_openai",
+                                                   route_prefix="/")
+            port = serve.http_port()
+            init_b = [c["init_s"] for c in _app_counts(rt, replicas, reset=True, since=t_run)]
+            log(f"  (b) build_openai_app, 1 replica x num_gpus 1 behind the proxy (port {port}): serve.run -> "
+                f"healthy {ready_b:.2f} s; its OpenAIServer built from "
+                + ", ".join(f"+{a:.2f} to +{b:.2f} s" for a, b in init_b))
+            lo, hi = OAI_PROMPT
+
+            def fits(text):
+                n = len(tok.encode(text, add_bos=True))
+                return True if lo <= n <= hi else (None if n > hi else False)
+
+            base = dict(max_tokens=MAX_TOKENS, ignore_eos=True)
+            greedy = [_oai_text(rng, words, fits) for _ in range(dict(APP_HTTP)["completions_greedy"])]
+            bodies = {}
+            for kind, n in APP_HTTP:
+                for i in range(n):
+                    sampling = dict(OAI_SAMPLED) if "sampled" in kind else dict(temperature=0.0)
+                    if kind.startswith("chat"):
+                        body = dict(base, messages=[{"role": "user", "content": _oai_text(rng, words, fits)}])
+                    else:  # the greedy streamed and unstreamed completions share their prompts
+                        prompt = greedy[i] if "greedy" in kind else _oai_text(rng, words, fits)
+                        body = dict(base, prompt=prompt)
+                    bodies[kind, i] = dict(body, stream="stream" in kind, **sampling)
+            results, errors = {}, []
+            barrier = threading.Barrier(len(bodies))
+
+            def client(key):
+                try:
+                    barrier.wait(timeout=RT_TIMEOUT_S)
+                    t_call = time.perf_counter()
+                    route = "/v1/chat/completions" if key[0].startswith("chat") else "/v1/completions"
+                    status, payload, first = _app_post(port, route, bodies[key])
+                    results[key] = dict(status=status, payload=payload, first_s=first,
+                                        wall_s=time.perf_counter() - t_call)
+                except Exception as e:  # noqa: BLE001  (raised in the main thread below)
+                    errors.append((key, e))
+
+            threads = [threading.Thread(target=client, args=(key,)) for key in bodies]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=2 * RT_TIMEOUT_S)
+            t1 = time.perf_counter()
+            counts_b = _app_counts(rt, replicas)
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"(b) HTTP clients failed: {errors[:4]}")
+            texts = {}
+            for key, r in results.items():
+                if r["status"] != 200:
+                    raise AssertionError(f"(b) {key}: HTTP {r['status']}: {r['payload']}")
+                text, finish, n_out = _app_text(key[0], r["payload"])
+                if finish not in ("length", "stop") or (n_out is not None and finish == "length"
+                                                         and n_out != MAX_TOKENS):
+                    raise AssertionError(f"(b) {key}: finish {finish!r}, {n_out} completion tokens")
+                texts[key] = text
+            differ = [i for i in range(len(greedy))
+                      if texts["completions_stream_greedy", i] != texts["completions_greedy", i]]
+            client_tt = sorted(r["first_s"] for r in results.values() if r["first_s"] is not None)
+            n_req = len(results)
+            tt = sorted(t for c in counts_b for t in c.pop("ttft_s"))
+            # All released at t0; after the last first token, decode only (phase 6e's measure).
+            decode_b = n_req * (MAX_TOKENS - 1) / (t1 - t0 - tt[-1])
+            # A request that has expired on arrival: the proxy maps the typed
+            # DeadlineExceeded to 504.
+            status, payload, _ = _app_post(port, "/v1/completions", dict(base, prompt=greedy[0]),
+                                           headers={"x-request-timeout-s": APP_DEADLINE_HEADER})
+            log(f"  (b) {n_req} HTTP requests ({', '.join(f'{n} {k}' for k, n in APP_HTTP)}), wall "
+                f"{t1 - t0:.3f} s, client TTFT over HTTP (streams) p50 {1e3 * statistics.median(client_tt):.2f} ms "
+                f"p99 {1e3 * _pct(client_tt, 0.99):.2f} ms (6e in process: {oai['client_ttft_p50_ms']:.2f} / "
+                f"{oai['client_ttft_p99_ms']:.2f} ms), engine TTFT p50 {1e3 * statistics.median(tt):.2f} ms p99 "
+                f"{1e3 * _pct(tt, 0.99):.2f} ms, decode {decode_b:.1f} tok/s (6e: {oai['decode_tok_s']:.1f}), "
+                f"overall {n_req * MAX_TOKENS / (t1 - t0):.1f} tok/s; greedy streamed text == unstreamed in "
+                f"{len(greedy) - len(differ)}/{len(greedy)}; "
+                f"x-request-timeout-s {APP_DEADLINE_HEADER}: HTTP {status} {payload}")
+            for c in counts_b:
+                log(f"    replica pid {c['pid']}: served {c['served']}, K1 {c['flash_fwd']}, K4 "
+                    f"{c['paged_decode']}, peak mem {c['peak_mem_gb']:.2f} GB")
+            if differ:
+                raise AssertionError(f"(b) greedy streamed text differs from the unstreamed text for prompts {differ}")
+            if status != 504:
+                raise AssertionError(f"(b) an expired request got HTTP {status}, not 504: {payload}")
+            if any(c["flash_fwd"] == 0 or c["paged_decode"] == 0 or c["served"] != n_req for c in counts_b):
+                raise AssertionError(f"(b) replica counts {counts_b}: K1 and K4 must run, and the replica must "
+                                     f"take the {n_req} requests")
+            stats_b = dict(ready_s=ready_b, replica_init_s=init_b, requests=n_req, wall_s=t1 - t0,
+                           client_ttft_p50_ms=1e3 * statistics.median(client_tt),
+                           client_ttft_p99_ms=1e3 * _pct(client_tt, 0.99),
+                           ttft_p50_ms=1e3 * statistics.median(tt), ttft_p99_ms=1e3 * _pct(tt, 0.99),
+                           decode_tok_s=decode_b, tok_s=n_req * MAX_TOKENS / (t1 - t0),
+                           deadline_status=status, replicas=counts_b,
+                           chat_template="chatml-jinja" if template else "legacy")
+            serve.delete("serve_app_openai")
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    launches = {k: sum(c[k] for c in counts_a + counts_b) for k in ("flash_fwd", "paged_decode")}
+    out = dict(llm_app=stats_a, openai_app=stats_b,
+               phase6={k: engine_only[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "decode_tok_s", "wall_s")},
+               phase6e={k: oai[k] for k in ("client_ttft_p50_ms", "client_ttft_p99_ms", "ttft_p50_ms",
+                                            "decode_tok_s", "tok_s")})
+    return out, launches
+
+
 def _ttft_count():
     """Observations in this process's serve.ttft_s histogram."""
     from ray_tpu_torch.util import metrics
@@ -2144,14 +2514,15 @@ def main(argv=None):
     g_serve, g_launches = phase_big_serve(dev, rng, "gemma2b", args.profile)
     oai, o_launches = phase_serve_openai(dev, stats)
     rt_serve, r_launches = phase_serve_runtime(dev, stats, phase6)
+    app_serve, a_launches = phase_serve_app(dev, stats, phase6, oai)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
-    # Launches by path: serve, serve_prefix, serve_openai, serve_runtime and
-    # train are the 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
+    # Launches by path: serve, serve_prefix, serve_openai, serve_runtime,
+    # serve_app and train are the 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
-             "serve_runtime": r_launches, "train": t_launches,
+             "serve_runtime": r_launches, "serve_app": a_launches, "train": t_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -2186,6 +2557,7 @@ def main(argv=None):
     log(json.dumps({"engine_gemma2b": g_serve}))
     log(json.dumps({"engine_openai": oai}))
     log(json.dumps({"engine_runtime": rt_serve}))
+    log(json.dumps({"engine_serve_app": app_serve}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))

@@ -16,10 +16,13 @@ torch is imported by the ML subpackages, not here nor by the runtime.
 - ``ray_tpu_torch.ops``     attention kernels (CUDA C++ for sm_90a, built at
                             first use) and their plain PyTorch versions
 - ``ray_tpu_torch.llm``     the continuous-batching serving engine, and the
-                            in-process serving surface on it (tokenizer,
-                            LLMServer, OpenAIServer, the batch UDF)
+                            serving surface on it (tokenizer, LLMServer,
+                            OpenAIServer, build_llm_app, build_openai_app)
 - ``ray_tpu_torch.qos``     the request context, fair queue, admission
-- ``ray_tpu_torch.serve``   the HTTP request/response types of a deployment
+- ``ray_tpu_torch.serve``   serving on the runtime: controller, replicas,
+                            handles, the HTTP proxy and binary RPC ingress
+- ``ray_tpu_torch.scale``   serve's demand estimator, scale policy and
+                            affinity routing
 - ``ray_tpu_torch.util``    metrics, tracing, background-task helpers
 - ``ray_tpu_torch.convert`` a ``ray_tpu`` parameter tree -> the port's
 """

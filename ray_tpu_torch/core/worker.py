@@ -1028,6 +1028,12 @@ class CoreWorker:
         try:
             return fut.result(timeout)
         except concurrent.futures.TimeoutError:
+            # Since 3.11 this is the builtin TimeoutError, so it also catches a
+            # TimeoutError subclass the coroutine raised itself (a typed
+            # qos.DeadlineExceeded from a remote task): re-raise that as is.
+            # Only a wait that ran out while the future is pending is ours.
+            if fut.done():
+                return fut.result()
             fut.cancel()
             raise GetTimeoutError(f"timed out after {timeout}s")
 

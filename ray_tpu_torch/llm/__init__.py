@@ -4,8 +4,9 @@ serving surface on it (counterpart of ``ray_tpu.llm``).
 ``LLMEngine`` batches requests at iteration level; ``LLMServer`` hosts one
 behind a stepping thread for concurrent blocking and streaming callers;
 ``OpenAIServer`` speaks text (completions, chat, SSE) through a
-``Tokenizer``. Not ported yet (they need the runtime): ``build_llm_app``,
-``build_openai_app`` and ``batch_generate``.
+``Tokenizer``. ``build_llm_app`` / ``build_openai_app`` make serve
+applications of them. ``batch_generate`` is not ported yet (it needs the
+port's ``data/``) and raises.
 
 The names below load on first use, so importing a torch-free submodule
 (``ray_tpu_torch.llm.tokenizer``) does not import torch.
@@ -14,7 +15,8 @@ import importlib
 
 _EXPORTS = {
     "EngineConfig": "engine", "LLMEngine": "engine", "LLMServer": "deployment",
-    "OpenAIServer": "openai", "SamplingParams": "sampling", "sample_batch": "sampling",
+    "build_llm_app": "deployment", "OpenAIServer": "openai", "build_openai_app": "openai",
+    "batch_generate": "batch", "SamplingParams": "sampling", "sample_batch": "sampling",
     "Tokenizer": "tokenizer", "HFTokenizer": "tokenizer", "load_tokenizer": "tokenizer",
 }
 

@@ -6,8 +6,8 @@ every row of a block is admitted to the engine's continuous-batching loop
 TOGETHER, so the block shares prefill groups and decode blocks.
 
 Not ported yet: ``batch_generate`` (a Dataset's actor-pool
-``map_batches``), which needs the runtime (``ROADMAP.md``, Queue 1 item 4).
-Until then call the UDF directly on rows.
+``map_batches``), which needs ``ray_tpu_torch/data/`` (``ROADMAP.md``, Queue
+1 item 8); it raises. Until then call the UDF directly on rows.
 """
 from __future__ import annotations
 
@@ -78,3 +78,12 @@ class _EngineUDF:
             row[self.output_column + "_tokens"] = list(map(int, toks))
             out.append(row)
         return out
+
+
+def batch_generate(ds, model_config: dict, engine_config: Optional[dict] = None,
+                   sampling: Optional[dict] = None, **kwargs):
+    """Map a Dataset of prompts through an actor pool of engines: not ported
+    yet, it needs the port's ``data/`` package."""
+    raise NotImplementedError(
+        "batch_generate needs Data's actor-pool map_batches, ray_tpu_torch/data/ "
+        "(ROADMAP.md, Queue 1 item 8); call _EngineUDF on rows meanwhile")

@@ -12,9 +12,12 @@ On the GPU the stepping thread launches the engine's kernels (K1 in
 prefill, K4 in paged decode) on the default stream, as the constructor's
 warmup does in the caller's thread: no thread sets a stream of its own.
 
-Not ported yet (they need the runtime): ``build_llm_app``, ``params`` given
-as an object-store reference, and ``weights_channel`` (checkpoint
-publication); see ``ROADMAP.md``, Queue 1 item 4.
+``build_llm_app`` makes a serve application of it: each replica is an
+actor that builds its own engine, and ``params`` may be an ``ObjectRef`` to
+one tree in the object store that every replica fetches in its own process
+(``torch.Tensor`` leaves move out of band). Not ported yet:
+``weights_channel`` (checkpoint publication), which needs the checkpoint
+plane (``ray_tpu_torch/ckpt/``; ``ROADMAP.md``, Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -42,10 +45,13 @@ def _coerce_sampling(sampling):
 class LLMServer:
     """Hosts an LLMEngine and its stepping thread.
 
+    Use through build_llm_app() or directly:
+        app = serve.deployment(LLMServer).options(...).bind(cfg_kwargs, engine_kwargs)
+
     ``params``: the port's parameter tree (``ray_tpu_torch.convert.
-    from_numpy_tree``), or None for seeded random weights. ``device``: None
-    is the GPU (raising when none is visible); pass ``device="cpu"`` for the
-    CPU."""
+    from_numpy_tree``), an ``ObjectRef`` to one, or None for seeded random
+    weights. ``device``: None is the GPU (raising when none is visible);
+    pass ``device="cpu"`` for the CPU."""
 
     def __init__(self, model_config: dict, engine_config: Optional[dict] = None,
                  warmup_buckets: Optional[tuple] = None, params=None,
@@ -53,14 +59,21 @@ class LLMServer:
         from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine
         from ray_tpu_torch.models.transformer import TransformerConfig
 
-        if params is not None and not isinstance(params, dict):
-            raise NotImplementedError(
-                f"params must be a parameter tree (dict), not {type(params).__name__}: fetching "
-                "weights from the object store needs the runtime (ROADMAP.md, Queue 1 item 4)")
         if weights_channel:
             raise NotImplementedError(
-                "weights_channel (checkpoint publication) needs the runtime (ROADMAP.md, Queue 1 item 4); "
-                "push weights with apply_weights")
+                "weights_channel (checkpoint publication) needs the checkpoint plane, "
+                "ray_tpu_torch/ckpt/ (ROADMAP.md, Queue 1 item 3); push weights with apply_weights")
+        # train->serve weight handoff: `params` may be an ObjectRef to a
+        # param tree in the object store; each replica fetches it here, in
+        # its own process (a CUDA tensor lands on this process's current
+        # device, one H2D copy per leaf; core/serialization.py).
+        if params is not None:
+            from ray_tpu_torch.core.object_ref import ObjectRef
+
+            if isinstance(params, ObjectRef):
+                import ray_tpu_torch as rt
+
+                params = rt.get(params, timeout=300.0)
         cfg = TransformerConfig(**model_config)
         ec = EngineConfig(**(engine_config or {}))
         self.engine = LLMEngine(cfg, params=params, engine_config=ec, device=device)
@@ -298,3 +311,40 @@ class LLMServer:
         with self._cond:
             self._cond.notify_all()
         self._thread.join(timeout=60.0)
+
+
+def build_llm_app(model_config: dict, engine_config: Optional[dict] = None,
+                  num_replicas: int = 1, max_ongoing_requests: Optional[int] = None,
+                  warmup_buckets: Optional[tuple] = None,
+                  ray_actor_options: Optional[dict] = None,
+                  params=None, weights_channel: Optional[str] = None,
+                  autoscaling_config=None, device=None):
+    """Build a serve application serving this model. max_ongoing_requests
+    defaults to the engine's slot count (router admission == engine capacity).
+    params: trained weights, a param tree or an ObjectRef to one (the
+    train->serve handoff: one put, each replica fetches it).
+    weights_channel: not ported yet (raises in each replica; ROADMAP.md,
+    Queue 1 item 3). autoscaling_config: AutoscalingConfig (or kwargs dict);
+    the replica count then floats between min/max, driven by the scale
+    plane's demand + QoS signals (ray_tpu_torch/scale/) instead of
+    num_replicas. ray_actor_options={"num_gpus": f} gives each replica a
+    share f of a card. device: passed on to each replica's LLMServer (None
+    is the GPU, raising in the replica when none is visible)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.engine import EngineConfig
+
+    ec = EngineConfig(**(engine_config or {}))
+    if isinstance(autoscaling_config, dict):
+        autoscaling_config = serve.AutoscalingConfig(**autoscaling_config)
+    if ec.tensor_parallel > 1:
+        raise NotImplementedError(
+            "tensor_parallel > 1 needs the mesh (ROADMAP.md, Queue 1 item 6)")
+    dep = serve.deployment(LLMServer).options(
+        name="llm",
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests or ec.max_slots,
+        ray_actor_options=dict(ray_actor_options or {}),
+        autoscaling_config=autoscaling_config,
+    )
+    return dep.bind(model_config, engine_config, warmup_buckets, params, weights_channel,
+                    device)

@@ -19,8 +19,9 @@ DEVIATION from the OpenAI API (the reference's): a request that omits
 (EngineConfig.temperature, 0.0 = greedy) — not OpenAI's 1.0. It is
 advertised in /v1/models metadata (`default_temperature`).
 
-Not ported yet: ``build_openai_app`` (a serve application behind the HTTP
-proxy), which needs the runtime (``ROADMAP.md``, Queue 1 item 4).
+``build_openai_app`` makes a serve application of it, reached through the
+HTTP proxy (``serve.run(app, route_prefix="/")``, then POST
+``/v1/completions`` or ``/v1/chat/completions`` to ``serve.http_port()``).
 """
 from __future__ import annotations
 
@@ -452,3 +453,42 @@ def make_prefix_router(tokenizer=None, page_size: int = 128):
         return hashlib.sha1(repr(head).encode()).hexdigest()[:16]
 
     return policy
+
+
+def build_openai_app(model_config: dict, engine_config: Optional[dict] = None,
+                     tokenizer: Optional[str] = None, model_name: str = "ray-tpu-llm",
+                     num_replicas: int = 1, max_ongoing_requests: Optional[int] = None,
+                     warmup_buckets: Optional[tuple] = None,
+                     ray_actor_options: Optional[dict] = None,
+                     prefix_routing: bool = False,
+                     chat_template: Optional[str] = None, device=None):
+    """OpenAI-compatible serving app; serve.run(...) it with a route_prefix
+    and POST /v1/chat/completions to the proxy port. prefix_routing=True
+    installs the prefix-affinity router policy in the proxy (pair with
+    engine_config={"kv_layout": "paged", "prefix_cache": True} so the sticky
+    replica actually reuses the pages). ray_actor_options={"num_gpus": f}
+    gives each replica a share f of a card. device: passed on to each
+    replica's OpenAIServer (None is the GPU, raising in the replica when
+    none is visible)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.engine import EngineConfig
+
+    ec = EngineConfig(**{k: v for k, v in (engine_config or {}).items()
+                         if k in EngineConfig.__dataclass_fields__})
+    if ec.tensor_parallel > 1:
+        raise NotImplementedError(
+            "tensor_parallel > 1 needs the mesh (ROADMAP.md, Queue 1 item 6)")
+    dep = serve.deployment(OpenAIServer).options(
+        name="openai_llm",
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests or ec.max_slots,
+        ray_actor_options=ray_actor_options or {},
+        # Router keys match the engine's page-granular cache: same
+        # tokenizer, same page size -> the affinity key IS the engine's
+        # first chain digest boundary.
+        request_router=(
+            make_prefix_router(tokenizer, ec.page_size) if prefix_routing else None
+        ),
+    )
+    return dep.bind(model_config, engine_config, tokenizer, model_name,
+                    warmup_buckets, chat_template, device)

@@ -415,6 +415,40 @@ def test_deferred_parts_raise_naming_the_roadmap(port_rt, call):
         call()
 
 
+def test_get_reraises_a_typed_deadline_at_once(port_rt):
+    """A task that raises qos.DeadlineExceeded (a TimeoutError subclass):
+    rt.get raises that error, typed, as soon as the task fails, and not a
+    GetTimeoutError after the wait (the port repairs CoreWorker._run, which
+    took every TimeoutError for its own wait running out)."""
+    from ray_tpu_torch import qos
+
+    @rt.remote
+    def expired():
+        raise qos.DeadlineExceeded("expired in task")
+
+    t0 = time.time()
+    with pytest.raises(qos.DeadlineExceeded, match="expired in task") as err:
+        rt.get(expired.remote(), timeout=30)
+    assert not isinstance(err.value, rt.GetTimeoutError)
+    assert time.time() - t0 < 15
+
+
+def test_get_timeout_still_raises_get_timeout_error(port_rt):
+    """A wait that really runs past its timeout is still the caller's
+    GetTimeoutError."""
+    @rt.remote
+    def slow():
+        time.sleep(3)
+        return 1
+
+    ref = slow.remote()
+    t0 = time.time()
+    with pytest.raises(rt.GetTimeoutError, match="timed out after 0.5s"):
+        rt.get(ref, timeout=0.5)
+    assert time.time() - t0 < 2.5
+    assert rt.get(ref, timeout=30) == 1
+
+
 _PROFILER_PROBE = """
 import ray_tpu_torch as rt
 from ray_tpu_torch.obs import profiler

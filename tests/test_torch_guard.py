@@ -1,9 +1,10 @@
 """The port stands alone: importing ray_tpu_torch (the serving surface
 included) brings in neither jax nor any ray_tpu module, its stdlib-only
 modules (tokenizer, metrics, tracing, qos, the HTTP types) and its runtime
-(core, obs, chaos, accel) bring in no torch, its engine runs on the GPU
-unless told otherwise, and a worker process of a port cluster loads neither
-jax nor any ray_tpu module."""
+(core, obs, chaos, accel, serve, scale) bring in no torch, its engine runs
+on the GPU unless told otherwise, and a worker process of a port cluster,
+a serve replica hosting the engine included, loads neither jax nor any
+ray_tpu module."""
 import subprocess
 import sys
 from pathlib import Path
@@ -17,6 +18,8 @@ import ray_tpu_torch.serve.proxy
 import ray_tpu_torch, ray_tpu_torch.core, ray_tpu_torch.core.api, ray_tpu_torch.core.worker_main
 import ray_tpu_torch.core.node, ray_tpu_torch.core.controller, ray_tpu_torch.state
 import ray_tpu_torch.obs, ray_tpu_torch.obs.profiler, ray_tpu_torch.chaos, ray_tpu_torch.accel
+import ray_tpu_torch.serve, ray_tpu_torch.scale, ray_tpu_torch.serve.controller, ray_tpu_torch.serve.replica
+import ray_tpu_torch.serve.protocol
 assert "torch" not in sys.modules, "a stdlib-only module imported torch"
 assert "jax" not in sys.modules, "the runtime imported jax"
 leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]
@@ -82,4 +85,45 @@ def test_port_worker_loads_no_jax_and_no_ray_tpu():
     out = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=180)
     assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+_REPLICA_PROBE = """
+import sys
+import ray_tpu_torch as rt
+from ray_tpu_torch import serve
+from ray_tpu_torch.llm import LLMServer
+
+class Probe(LLMServer):
+    def modules(self):
+        import sys
+        return sorted(sys.modules)
+
+rt.init(num_cpus=2)
+serve.start(proxy=False)
+try:
+    model = dict(vocab_size=64, d_model=32, n_layers=1, n_heads=2, n_kv_heads=1, d_ff=64,
+                 max_seq_len=64)
+    engine = {"max_slots": 2, "max_seq": 64, "prefill_buckets": (16,)}
+    handle = serve.run(serve.deployment(Probe).bind(model, engine, None, None, None, "cpu"),
+                       name="guard", http=False)
+    assert len(handle.remote({"tokens": [1, 2, 3], "max_tokens": 4}).result(timeout=120)["tokens"]) == 4
+    mods = handle.modules.remote().result(timeout=60)
+    assert "ray_tpu_torch.serve.replica" in mods and "torch" in mods, mods
+    bad = [m for m in mods if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+    assert not bad, bad
+finally:
+    serve.shutdown()
+    rt.shutdown()
+print("clean")
+"""
+
+
+def test_serve_replica_loads_no_jax_and_no_ray_tpu():
+    """A serve replica that hosts the engine (an LLMServer on the CPU)
+    reports its process's sys.modules after serving a request: torch, the
+    port's replica, and nothing of jax or ray_tpu."""
+    out = subprocess.run([sys.executable, "-c", _REPLICA_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "clean"

@@ -503,13 +503,20 @@ def test_servers_run_on_the_gpu_unless_asked(monkeypatch, tok_path):
 
 
 def test_runtime_only_arguments_raise(weights):
-    class ObjectRef:  # what the runtime would hand over instead of a tree
-        pass
+    """What still waits for a later slice raises a typed error naming its
+    ROADMAP item: weights_channel (the checkpoint plane), batch_generate
+    (Data), tensor_parallel > 1 in the app builders (the mesh). A params
+    ObjectRef is served since serve came to the port
+    (tests/test_torch_serve_llm.py)."""
+    from ray_tpu_torch.llm import batch_generate, build_llm_app, build_openai_app
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        LLMServer(PORT_MODEL, ENGINE, params=ObjectRef(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         LLMServer(PORT_MODEL, ENGINE, weights_channel="ckpt", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        batch_generate(None, PORT_MODEL, ENGINE)
+    for build in (build_llm_app, build_openai_app):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            build(PORT_MODEL, dict(ENGINE, tensor_parallel=2), device="cpu")
 
 
 def test_warmup_runs_the_sampler(weights, monkeypatch):
