@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--profile DIR]
 
 Phases, in order; any failure exits non-zero:
-  1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
+  1. device: the card's name and power limit (nvidia-smi), torch and CUDA,
+     and whether pyarrow and pandas import (the reference's Data rests on
+     pyarrow; printed, not gated).
   2. build: compiles the CUDA kernels from ray_tpu_torch/ops/csrc (one nvcc
      per source, in parallel) into ray_tpu_torch/ops/_build_out, every
      template instance (K1, K3 and K2 at head dims 64, 128 and 256; K4 per
@@ -146,7 +148,12 @@ Phases, in order; any failure exits non-zero:
      prefill logits against the plain forward (phase 6's tolerances).
      Printed: client TTFT (call to first SSE frame, streams), the engine's
      TTFT, decode and overall tokens/s, beside phase 6's engine-only
-     numbers and their ratio (the serving surface's overhead).
+     numbers and their ratio (the serving surface's overhead). Then the
+     device window: the 8 token-level prompts again, sent together while
+     tracing.profile_tpu (torch.profiler through the port's device_capture)
+     runs in the main thread, from their release until the stepping thread
+     has ended the first step that prefilled and two more steps (one
+     admission step, two decode blocks).
   6f. serve-runtime-250M: phase 6's model, weights and prompts through the
      port's runtime (ray_tpu_torch.core): rt.init(num_cpus=4, resources
      {"GPU": 1}, a 2 GiB object store in /dev/shm; the phase fails, naming
@@ -166,7 +173,9 @@ Phases, in order; any failure exits non-zero:
      serve_runtime counts the task's K1 and the actor's). Printed, not
      gated: TTFT p50/p99, decode tok/s and wall time beside phase 6's, the
      ref -> engine time (get, build, warmup) and the actor's peak memory.
-     rt.shutdown() ends the worker processes.
+     Then the device window: inside the actor, its serve of the first 8 of
+     phase 6's prompts under tracing.profile_tpu. rt.shutdown() ends the
+     worker processes.
   6g. serve-app-250M: phase 6's model through serve on the runtime:
      rt.init(num_cpus=8, resources {"GPU": 1}, the 2 GiB store), then
      serve.start() (controller and HTTP proxy). (a) build_llm_app with
@@ -193,7 +202,30 @@ Phases, in order; any failure exits non-zero:
      serve.run -> healthy for (a) and (b), engine TTFT, client TTFT over
      HTTP beside 6e's in-process client TTFT, decode and overall tok/s, each
      replica's peak memory and K1 / K4 launches. A deployment that does not
-     become healthy within 600 s fails the phase, naming its status.
+     become healthy within 600 s fails the phase, naming its status. After
+     (a)'s gates, the device window: one replica starts the port's
+     profile_server listener (a method of _counted's class), one HTTP
+     request there runs a 15 s capture in that replica's process, and
+     phase 6's prompts go through the handle again inside it.
+     Device windows (6e, 6f, 6g): the trace must exist and parse, hold K4,
+     and hold K1 where a prefill fell in the window; in 6f and 6g as many
+     launches of each as the wrappers counted in the window (6e: at least
+     as many; its counts cover part of the window). Printed: device time
+     (the union of the trace's kernels, memcpys and memsets; CUPTI records
+     every thread of the process), wall time and the busy share (device
+     over wall; 6f and 6g also over the span the requests ran).
+  6h. dag-250M: a compiled DAG (ray_tpu_torch.dag) of two num_gpus=0.5
+     actors in 6f's session (GPU 1, the 2 GiB store). Stage A makes q, k, v
+     on the card from the execution's seed (phase 6's prefill shape: q
+     [8, 512, 16, 64], k and v [8, 512, 4, 64], bf16, 12 MiB, so the edge is
+     the shared-memory channel); stage B runs K1 (flash_attention) and
+     returns o. One warmup execution, then 10 pipelined executions. Gates:
+     each o within phase 3's tolerance (max |o - o_ref| <= 2e-2, finite) of
+     the plain version in fp32 on the same seeded inputs; stage B's process
+     counts exactly 10 K1 launches; the dag_shm_edges counter ticks. Then a
+     one-edge DAG carries bf16 CUDA tensors of 64 KiB to 256 MiB from stage
+     A to stage B, which checks their bits by an integer checksum; p50
+     execute latency of 5 and GB/s printed beside 6f's bf16 put / get.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -228,12 +260,13 @@ Phases, in order; any failure exits non-zero:
      [8, 4096, 256000] logits never exist; a fallback to them is an error).
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
-     {"engine_runtime": ...}, {"engine_serve_app": ...}, {"train": ...},
+     {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
      registers and spills per instance, null where this run did not
-     compile it) and, last, {"ok": true, "device": ...}.
+     compile it) and, last, {"ok": true, "device": ...}. 6e, 6f and 6g's
+     device windows are under "device_window" in their phases' lines.
 
 ``--profile DIR`` also traces the paged engine with torch.profiler (the
 admission step with its prefills, then two decode steps), the admission
@@ -242,7 +275,7 @@ tail attention's einsums and softmax, the GEMMs and the page copies), the
 7B engine's admission step and two decode steps (6c), and one training
 step of each training cell, prints each window's device time by kind of
 kernel, and writes the kernel tables and traces to DIR (the 2B engine's
-and training step too).
+and training step too); the device windows' traces go to DIR/windows.
 """
 from __future__ import annotations
 
@@ -252,9 +285,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -327,6 +362,21 @@ CHATML = ("{% for message in messages %}<|im_start|>{{ message.role }}\n{{ messa
 PREFIX_OPS = ("aten::einsum", "aten::_softmax", "aten::masked_fill", "aten::mm", "aten::index_select",
               "aten::index_copy_", "aten::cat")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 2048, 10  # bench.py's batch and sequence
+# Device windows of 6e, 6f and 6g: torch.profiler traces taken through the
+# port's own tracing.profile_tpu / profile_server, written under WINDOW_DIR
+# (a directory under --profile DIR when given, else a temporary directory
+# removed at exit). 6f's window serves the first WINDOW_6F_N of phase 6's
+# prompts; 6g's capture runs WINDOW_6G_S seconds in one replica. A trace's
+# kernels are told apart by these names.
+WINDOW_DIR = None
+WINDOW_6F_N, WINDOW_6G_S = 8, 15.0
+K1_NAME, K4_NAME = "flash_fwd_kernel", "paged_decode_kernel"
+# Phase 6h: a compiled DAG of two num_gpus=0.5 actors. Stage A makes q, k, v
+# at phase 6's prefill shape from a seed, stage B runs K1 on them; DAG_EXECS
+# pipelined executions. Then a one-edge DAG carries bf16 CUDA tensors of
+# DAG_SIZES bytes, DAG_REPS timed executions each after one warmup.
+DAG_EXECS, DAG_REPS = 10, 5
+DAG_SIZES = (64 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20, 256 << 20)
 PARITY_LAYERS, PARITY_B = 2, 2
 # The kernel phases' shapes for each head dim: D 64 at the 250M model's
 # heads, D 128 at Mistral-7B's (H 32, KV 8), D 256 at Gemma-2B's (H 8, KV
@@ -424,6 +474,15 @@ def phase_device():
     log(card)
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}  "
         f"torch {torch.__version__}  cuda {torch.version.cuda}  python {sys.version.split()[0]}")
+    # Data's seam (ROADMAP Queue 1 item 8): a block of the reference's Data
+    # is a pyarrow Table. Recorded, not needed by any phase.
+    found = []
+    for mod in ("pyarrow", "pandas"):
+        try:
+            found.append(f"{mod} {__import__(mod).__version__}")
+        except Exception as e:  # noqa: BLE001  (what is missing is the finding)
+            found.append(f"{mod} not importable ({type(e).__name__}: {e})")
+    log(f"data packages: {'; '.join(found)}")
     return card
 
 
@@ -1506,7 +1565,6 @@ def phase_serve_openai(dev, engine_only):
     served as text through OpenAIServer (tokenizer, chat template, SSE) over
     LLMServer's stepping thread, which launches K1 and K4. `engine_only`:
     phase 6's numbers on the same model, printed beside these."""
-    import tempfile
     import threading
 
     import torch
@@ -1738,10 +1796,73 @@ def phase_serve_openai(dev, engine_only):
     prompts = [np.asarray(bodies[k]["tokens"], np.int32) for k in keys]
     done = {f"r{i}": results[k]["out"] for i, k in enumerate(keys)}
     stats.update(check_first_tokens(cfg, eng, prompts, done, dev))
+    stats["device_window"] = _oai_window(srv, eng, [bodies[k] for k in keys])
     srv.__raytpu_exit__()
     del srv, llm, eng
     torch.cuda.empty_cache()
     return stats, launches
+
+
+def _oai_window(srv, eng, bodies):
+    """6e's device window, after the timed run: `bodies` (token-level
+    requests) sent together through LLMServer while tracing.profile_tpu
+    runs in this thread, from their release until the stepping thread has
+    ended the first step that prefilled and two more steps (one admission
+    step and two decode blocks). The stepping thread's kernels are in the
+    trace: CUPTI's device records cover the whole process, where
+    torch.profiler's host ops cover only the thread that entered it."""
+    import threading
+
+    from ray_tpu_torch import qos
+    from ray_tpu_torch.ops import attention, paged_attention
+    from ray_tpu_torch.util import tracing
+
+    step, steps, cond = eng.step, [], threading.Condition()
+
+    def observed_step():
+        k1 = attention.LAUNCHES
+        events = step()
+        with cond:
+            steps.append(attention.LAUNCHES - k1)
+            cond.notify_all()
+        return events
+
+    def admitted_and_two():
+        first = next((i for i, n in enumerate(steps) if n), None)
+        return first is not None and len(steps) >= first + 3
+
+    outs, errors = [], []
+
+    def client(body):
+        try:
+            with qos.request_context(timeout_s=OAI_TIMEOUT_S):
+                outs.append(srv._llm(dict(body)))
+        except Exception as e:  # noqa: BLE001  (raised below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(b,)) for b in bodies]
+    eng.step = observed_step
+    try:
+        with tracing.profile_tpu(_window_dir("serve_openai")) as tr:
+            c0 = (attention.LAUNCHES, paged_attention.LAUNCHES)
+            for t in threads:
+                t.start()
+            with cond:
+                if not cond.wait_for(admitted_and_two, timeout=OAI_TIMEOUT_S):
+                    raise AssertionError(f"6e window: no admission and two more steps within {OAI_TIMEOUT_S} s "
+                                         f"(steps' K1 launches {steps})")
+                n_steps = len(steps)
+            launched = {"flash_fwd": attention.LAUNCHES - c0[0], "paged_decode": paged_attention.LAUNCHES - c0[1]}
+    finally:
+        for t in threads:
+            t.join(timeout=2 * OAI_TIMEOUT_S)
+        del eng.step  # back to the class's method
+    if errors or len(outs) != len(bodies):
+        raise AssertionError(f"6e window requests failed: {errors[:4]}")
+    row = _hold_window("6e (in process, one admission step and two decode blocks)", tr.path, tr.summary(),
+                       launched, exact=False)
+    row["steps"] = n_steps
+    return row
 
 
 # Phase 6f: the port's runtime. Transport sizes in bytes (64 KiB is inlined
@@ -1845,8 +1966,6 @@ def phase_serve_runtime(dev, engine_only, phase6):
     the whole parameter tree as one ObjectRef, builds phase 6's engine and
     serves phase 6's 32 prompts; its tokens must equal phase 6's.
     `engine_only`: phase 6's numbers, printed beside the actor's."""
-    import shutil
-
     import torch
 
     import ray_tpu_torch as rt
@@ -1919,6 +2038,20 @@ def phase_serve_runtime(dev, engine_only, phase6):
                 return tokens, serve_stats(done, ttft, t0, t1), launches, _finished(done, len(prompts),
                                                                                     MODEL["vocab_size"])
 
+            def serve_traced(self, prompts, max_tokens, logdir):
+                """serve() of an extra batch inside one tracing.profile_tpu
+                window of this process; returns the trace's path and summary
+                and the launches counted in the window."""
+                from ray_tpu_torch.ops import attention, paged_attention
+                from ray_tpu_torch.util import tracing
+
+                attention.LAUNCHES = paged_attention.LAUNCHES = 0
+                with tracing.profile_tpu(logdir) as tr:
+                    done, _, t0, t1 = drive(self.eng, prompts, max_tokens, prefix="w")
+                launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+                return (tr.path, tr.summary(), launches, t1 - t0,
+                        _finished(done, len(prompts), MODEL["vocab_size"], max_tokens=max_tokens))
+
         actor = EngineActor.remote()
         ec_kw = dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0)
         t0 = time.perf_counter()
@@ -1950,11 +2083,17 @@ def phase_serve_runtime(dev, engine_only, phase6):
             raise AssertionError(f"the actor's tokens differ from phase 6's in {len(bad)} requests: {bad[:4]}")
         if not (actor_launches["flash_fwd"] > 0 and actor_launches["paged_decode"] > 0):
             raise AssertionError(f"a kernel of the actor's path was never launched: {actor_launches}")
+        path, summary, w_launches, span_s, w_finished = rt.get(actor.serve_traced.remote(
+            prompts[:WINDOW_6F_N], MAX_TOKENS, _window_dir("serve_runtime")), timeout=RT_TIMEOUT_S)
+        if not w_finished:
+            raise AssertionError("6f window: the actor did not finish the window's requests")
+        window = _hold_window(f"6f (in the GPU actor, around its serve of {WINDOW_6F_N} prompts)", path, summary,
+                              w_launches, exact=True, span_s=span_s)
         rt.kill(actor)
         del params_ref
         out = dict(stats, ref_to_engine_s=ref_to_engine_s, weights_put_s=put_s, **{
             f"actor_{k}": loaded[k] for k in ("get_s", "build_s", "warmup_s", "load_peak_mem_gb")},
-            transport=transport,
+            transport=transport, device_window=window,
             phase6=engine_only)
     finally:
         rt.shutdown()
@@ -1980,7 +2119,9 @@ def _counted(base):
     its __call__ took and the engine's TTFT of each (observed on the
     engine's step events, as phase 6e observes, never changes), and can set
     them back to 0; also the wall-clock span of its server's construction
-    (weights, engine, warmup)."""
+    (weights, engine, warmup). It can start the port's device-profiler
+    listener in its process (tracing.profile_server) and report how many
+    device capture sessions are open there."""
 
     class Counted(base):
         def __init__(self, *args, **kwargs):
@@ -2019,6 +2160,18 @@ def _counted(base):
                 torch.cuda.reset_peak_memory_stats()
             return out
 
+        def start_profile_server(self):
+            from ray_tpu_torch.util import tracing
+
+            if getattr(self, "_profile_server", None) is None:
+                self._profile_server = tracing.profile_server(0)  # a free port
+            return self._profile_server.port
+
+        def device_sessions(self):
+            from ray_tpu_torch.obs import profiler
+
+            return sum(1 for x in profiler.status()["sessions"] if x["kind"] == "device")
+
     Counted.__name__ = Counted.__qualname__ = f"Counted{base.__name__}"
     return Counted
 
@@ -2052,6 +2205,61 @@ def _app_counts(rt, replicas, reset=False, since=None):
         if since is not None:
             c["init_s"] = [a - since, b - since]
     return counts
+
+
+def _app_window(rt, handle, replica, prompts):
+    """6g's device window, after (a)'s timed run: one replica starts the
+    port's profile_server listener; one GET /capture runs a WINDOW_6G_S
+    device capture in that replica's process; once its session is open,
+    phase 6's prompts go through the handle again, and they must all finish
+    before the capture ends. The replica's counts, set to 0 after the
+    capture opened and read after the batch, are its launches in the
+    window."""
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    port = rt.get(replica.handle_request.remote("start_profile_server", (), {}), timeout=60)
+    url = (f"http://127.0.0.1:{port}/capture?seconds={WINDOW_6G_S}&logdir="
+           + urllib.parse.quote(_window_dir("serve_app")))
+    reply = {}
+
+    def capture():
+        try:
+            with urllib.request.urlopen(url, timeout=WINDOW_6G_S + RT_TIMEOUT_S) as r:
+                reply.update(json.loads(r.read()))
+        except Exception as e:  # noqa: BLE001  (raised below)
+            reply["error"] = f"{type(e).__name__}: {e}"
+
+    t = threading.Thread(target=capture)
+    t.start()
+    t_end = time.perf_counter() + 60
+    while rt.get(replica.handle_request.remote("device_sessions", (), {}), timeout=60) < 1:
+        if time.perf_counter() > t_end or not t.is_alive():
+            t.join()
+            raise AssertionError(f"6g window: the replica's capture did not open: {reply}")
+        time.sleep(0.05)
+    _app_counts(rt, [replica], reset=True)
+    t0 = time.perf_counter()
+    outs = [r.result(timeout=RT_TIMEOUT_S) for r in
+            [handle.remote({"tokens": p.tolist(), "max_tokens": MAX_TOKENS}) for p in prompts]]
+    span_s = time.perf_counter() - t0
+    counts = _app_counts(rt, [replica])[0]
+    still_open = rt.get(replica.handle_request.remote("device_sessions", (), {}), timeout=60) >= 1
+    t.join()
+    if "error" in reply:
+        raise AssertionError(f"6g window: the capture failed: {reply['error']}")
+    if not still_open:
+        raise AssertionError("6g window: the batch outlasted the capture; raise WINDOW_6G_S")
+    if len(outs) != len(prompts) or counts["served"] < 1:
+        raise AssertionError(f"6g window: {len(outs)} responses, the traced replica served {counts['served']}")
+    summary = {k: reply[k] for k in ("device_ms", "wall_ms", "busy", "kernels", "device_events")}
+    launched = {k: counts[k] for k in ("flash_fwd", "paged_decode")}
+    row = _hold_window(f"6g (replica pid {counts['pid']} of (a), through profile_server, {WINDOW_6G_S} s "
+                       f"capture; it served {counts['served']} of {len(prompts)})", reply["path"], summary,
+                       launched, exact=True, span_s=span_s)
+    row.update(served=counts["served"], capture_s=WINDOW_6G_S, route="profile_server in one replica of (a)")
+    return row
 
 
 def _app_post(port, path, body, headers=None):
@@ -2101,7 +2309,6 @@ def phase_serve_app(dev, engine_only, phase6, oai):
     equal phase 6's); (b) build_openai_app behind the HTTP proxy, 32 client
     threads over HTTP, and a 504 for an expired request. `engine_only`,
     `oai`: phases 6 and 6e's numbers, printed beside these."""
-    import tempfile
     import threading
 
     import torch
@@ -2170,6 +2377,7 @@ def phase_serve_app(dev, engine_only, phase6, oai):
                 raise AssertionError(f"(a) replica pid {c['pid']} served {c['served']} requests with K1 "
                                      f"{c['flash_fwd']} K4 {c['paged_decode']}: every replica must serve and "
                                      "launch both kernels")
+        stats_a["device_window"] = _app_window(rt, handle, replicas[0], prompts)
         serve.delete("serve_app_llm")
         del params_ref, handle, replicas
         t_end = time.perf_counter() + 120
@@ -2299,6 +2507,171 @@ def phase_serve_app(dev, engine_only, phase6, oai):
     return out, launches
 
 
+def _dag_qkv(seed):
+    """Phase 6h's q, k, v on the current CUDA device from `seed`: phase 6's
+    prefill shape (8 x 512, H 16, KV 4, D 64), bf16. The same seed gives the
+    same bits in any process on the card (a CUDA generator)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, S = 8, PROMPT_LEN
+    return tuple(torch.randn(B, S, h, D, device="cuda", generator=g).bfloat16() for h in (H, KV, KV))
+
+
+def _dag_edges(rt):
+    """The dag_shm_edges counter as the controller's metrics report it (the
+    stage processes ship it on the reporter's tick)."""
+    from ray_tpu_torch.core import api as rt_api
+
+    core = rt_api._require_worker()
+    m = core._run(core.controller.call("get_metrics", {}))
+    return sum(x.get("value", 0) for x in (m if isinstance(m, list) else [])
+               if isinstance(x, dict) and x.get("name") == "dag_shm_edges")
+
+
+def phase_dag(dev, transport):
+    """Phase 6h (dag-250M): a compiled DAG of two num_gpus=0.5 actors on the
+    card (the session of 6f: GPU 1, the 2 GiB store in /dev/shm). Stage A
+    makes q, k, v on the card from the execution's seed (phase 6's prefill
+    shape, 12 MiB: above the inline cap, so the edge is the shared-memory
+    channel); stage B runs K1 (flash_attention) on them and returns o.
+    DAG_EXECS pipelined executions: each o within phase 3's K1 tolerance of
+    the plain version on the same seeded inputs, stage B's process counts
+    one K1 launch per execution, and dag_shm_edges ticks. Then a one-edge
+    DAG carries bf16 CUDA tensors of DAG_SIZES (stage B checks their bits
+    by an integer checksum): p50 execute latency and GB/s, printed beside
+    6f's rt.put / rt.get (`transport`). Returns (stats, stage B's K1
+    launches)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.ops import attention as att
+
+    @rt.remote(num_gpus=0.5)
+    class Make:
+        def qkv(self, seed):
+            return _dag_qkv(seed)
+
+        def tensor(self, nbytes):
+            import torch
+
+            g = torch.Generator(device="cuda").manual_seed(nbytes)
+            return torch.randn(nbytes // 2, device="cuda", generator=g).bfloat16()
+
+    @rt.remote(num_gpus=0.5)
+    class Attend:
+        def reset(self):
+            from ray_tpu_torch.ops import attention
+
+            attention.LAUNCHES = 0
+            return os.getpid()
+
+        def launches(self):
+            from ray_tpu_torch.ops import attention
+
+            return attention.LAUNCHES
+
+        def run(self, qkv):
+            from ray_tpu_torch.ops import attention
+
+            return attention.flash_attention(*qkv, causal=True)
+
+        def checksum(self, x):
+            import torch
+
+            return x.device.type, str(x.dtype), x.numel(), int(x.view(torch.int16).to(torch.int64).sum())
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS, resources={"GPU": 1}, object_store_memory=RT_STORE_BYTES)
+    try:
+        make, attend = Make.remote(), Attend.remote()
+        pid = rt.get(attend.reset.remote(), timeout=RT_TIMEOUT_S)
+        log(f"dag: rt.init and two num_gpus=0.5 actors {time.perf_counter() - t0:.2f} s, resources "
+            f"{rt.cluster_resources()}")
+        with InputNode() as inp:
+            out = attend.run.bind(make.qkv.bind(inp))
+        dag = out.experimental_compile()
+        edges0 = _dag_edges(rt)
+        try:
+            # Warm both stages (CUDA context, the kernel's load) off the count.
+            dag.execute(DAG_EXECS).result(timeout=RT_TIMEOUT_S)
+            rt.get(attend.reset.remote(), timeout=60)
+            t0 = time.perf_counter()
+            refs = [dag.execute(i) for i in range(DAG_EXECS)]
+            outs = [r.result(timeout=RT_TIMEOUT_S) for r in refs]
+            wall = time.perf_counter() - t0
+            launches = rt.get(attend.launches.remote(), timeout=60)
+        finally:
+            dag.teardown()
+        worst = 0.0
+        for i, o in enumerate(outs):
+            q, k, v = _dag_qkv(i)
+            ref = att.mha_reference(q.float(), k.float(), v.float(), causal=True)
+            err = (o.float() - ref).abs().max().item()
+            if not (o.is_cuda and o.dtype == torch.bfloat16 and o.shape == q.shape and bool(torch.isfinite(o).all())
+                    and err <= 2e-2):
+                raise AssertionError(f"6h execution {i}: o on {o.device} {o.dtype} {tuple(o.shape)}, "
+                                     f"max |o - ref| {err:.3e} (> 2e-2 or not finite)")
+            worst = max(worst, err)
+        del outs
+        t_end = time.perf_counter() + 30
+        edges = _dag_edges(rt) - edges0
+        while edges < DAG_EXECS and time.perf_counter() < t_end:
+            time.sleep(0.5)
+            edges = _dag_edges(rt) - edges0
+        log(f"  {DAG_EXECS} pipelined executions in {wall:.3f} s: o within 2e-2 of the plain version in all "
+            f"(max |o - ref| {worst:.3e}); stage B (pid {pid}) launched K1 {launches} times; dag_shm_edges "
+            f"+{edges:g}")
+        if launches != DAG_EXECS:
+            raise AssertionError(f"6h: stage B launched K1 {launches} times in {DAG_EXECS} executions")
+        if edges < 1:
+            raise AssertionError("6h: dag_shm_edges never ticked: the edge did not ride the shared-memory channel")
+
+        # The one-edge DAG: bytes from stage A to stage B on the card.
+        with InputNode() as inp:
+            out = attend.checksum.bind(make.tensor.bind(inp))
+        dag = out.experimental_compile()
+        sweep = []
+        by_size = {r["bytes"]: r for r in transport if r["dtype"] == "bfloat16"}
+        try:
+            for nbytes in DAG_SIZES:
+                g = torch.Generator(device=dev).manual_seed(nbytes)
+                x = torch.randn(nbytes // 2, device=dev, generator=g).bfloat16()
+                want = ("cuda", "torch.bfloat16", nbytes // 2, int(x.view(torch.int16).to(torch.int64).sum()))
+                del x
+                lat = []
+                for rep in range(DAG_REPS + 1):
+                    t0 = time.perf_counter()
+                    got = dag.execute(nbytes).result(timeout=RT_TIMEOUT_S)
+                    if rep:
+                        lat.append(time.perf_counter() - t0)
+                    if tuple(got) != want:
+                        raise AssertionError(f"6h edge of {nbytes} B: stage B saw {got}, want {want}")
+                p50 = statistics.median(lat)
+                row = dict(bytes=nbytes, p50_ms=1e3 * p50, gb_s=nbytes / p50 / 1e9)
+                ref = by_size.get(nbytes)
+                if ref is not None:
+                    row.update(put_gb_s=ref["put_gb_s"], get_gb_s=ref["get_gb_s"])
+                sweep.append(row)
+                beside = (f" (6f bf16: put {ref['put_gb_s']:.3f} GB/s, get {ref['get_gb_s']:.3f} GB/s)"
+                          if ref is not None else "")
+                log(f"  one-edge DAG, bf16 CUDA tensor of {nbytes / 2**20:8.3f} MiB: execute p50 "
+                    f"{row['p50_ms']:.3f} ms, {row['gb_s']:.3f} GB/s{beside}")
+        finally:
+            dag.teardown()
+        rt.kill(make)
+        rt.kill(attend)
+    finally:
+        rt.shutdown()
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    stats = dict(executions=DAG_EXECS, wall_s=wall, max_abs_err=worst, k1_launches_stage_b=launches,
+                 shm_edges=edges, edge_sweep=sweep)
+    return stats, {"flash_fwd": launches}
+
+
 def _ttft_count():
     """Observations in this process's serve.ttft_s histogram."""
     from ray_tpu_torch.util import metrics
@@ -2426,6 +2799,45 @@ def _by_kind(device_events):
     return sorted(((k, us, n) for k, (us, n) in acc.items()), key=lambda r: -r[1])
 
 
+def _window_dir(name):
+    path = os.path.join(WINDOW_DIR, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _hold_window(name, trace_path, summary, launched, exact, span_s=None):
+    """Gate and report of one device window. `summary` is
+    obs.profiler.trace_summary of the window's trace (so the file exists and
+    parses); `launched`: the K1 / K4 launches the wrappers counted in the
+    window. Every kernel the window is known to launch must be in the
+    trace: exactly as many launches when `exact` (the counts cover the whole
+    window), at least as many otherwise (they cover part of it), and K4
+    always (each window decodes). Prints the device time (the union of the
+    trace's kernels, memcpys and memsets), the wall time and the busy share
+    (device over wall; with `span_s`, also over the span the work ran in).
+    Returns the row for the JSON line."""
+    in_trace = {"flash_fwd": sum(n for k, n in summary["kernels"].items() if K1_NAME in k),
+                "paged_decode": sum(n for k, n in summary["kernels"].items() if K4_NAME in k)}
+    row = dict(device_ms=summary["device_ms"], wall_ms=summary["wall_ms"], busy=summary["busy"],
+               device_events=summary["device_events"], launched=launched, in_trace=in_trace,
+               trace_bytes=os.path.getsize(trace_path))
+    extra = ""
+    if span_s is not None:
+        row.update(span_ms=1e3 * span_s, busy_in_span=summary["device_ms"] / (1e3 * span_s))
+        extra = f"; busy over the {row['span_ms']:.2f} ms the work ran: {row['busy_in_span']:.4f}"
+    log(f"  device window {name}: device {row['device_ms']:.3f} ms in {row['wall_ms']:.3f} ms wall, busy "
+        f"share {row['busy']:.4f}{extra}; {row['device_events']} device events; K1 {in_trace['flash_fwd']} / "
+        f"K4 {in_trace['paged_decode']} in the trace, {launched['flash_fwd']} / {launched['paged_decode']} "
+        f"counted ({'the whole window' if exact else 'part of the window'}); trace {row['trace_bytes']} B")
+    if launched["paged_decode"] == 0:
+        raise AssertionError(f"device window {name}: no K4 launch counted (the window must decode)")
+    for k, n in launched.items():
+        if n and (in_trace[k] != n if exact else in_trace[k] < n):
+            raise AssertionError(f"device window {name}: {k} launched {n} times, {in_trace[k]} in the trace "
+                                 f"{trace_path}")
+    return row
+
+
 def _profile_window(name, fn, out_dir, ops=()):
     """torch.profiler over fn(); writes the kernel table and the trace to
     out_dir and prints the wall time, device kernel time, device time by
@@ -2490,6 +2902,18 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     torch.manual_seed(0)
     rng = np.random.default_rng(0)
+    global WINDOW_DIR
+    WINDOW_DIR = os.path.join(args.profile, "windows") if args.profile else tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _run(args, dev, rng)
+    finally:
+        if not args.profile:
+            shutil.rmtree(WINDOW_DIR, ignore_errors=True)
+
+
+def _run(args, dev, rng):
+    import torch
+
     t_start = time.perf_counter()
     card = phase_device()
     ptxas = phase_build()
@@ -2515,14 +2939,15 @@ def main(argv=None):
     oai, o_launches = phase_serve_openai(dev, stats)
     rt_serve, r_launches = phase_serve_runtime(dev, stats, phase6)
     app_serve, a_launches = phase_serve_app(dev, stats, phase6, oai)
+    dag, d_launches = phase_dag(dev, rt_serve["transport"])
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
     # Launches by path: serve, serve_prefix, serve_openai, serve_runtime,
-    # serve_app and train are the 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
+    # serve_app, dag and train are the 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
-             "serve_runtime": r_launches, "serve_app": a_launches, "train": t_launches,
+             "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "train": t_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -2558,6 +2983,7 @@ def main(argv=None):
     log(json.dumps({"engine_openai": oai}))
     log(json.dumps({"engine_runtime": rt_serve}))
     log(json.dumps({"engine_serve_app": app_serve}))
+    log(json.dumps({"dag": dag}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))

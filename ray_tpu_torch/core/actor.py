@@ -57,12 +57,13 @@ class ActorMethod:
         return m
 
     def bind(self, *args):
-        """Capture this call as a compiled-DAG node (reference:
-        dag/dag_node.py bind). The port has no compiled DAGs yet."""
-        raise NotImplementedError(
-            "compiled DAGs are not ported yet (ROADMAP Queue 1 item 2: the "
-            "ring/elastic/DAG verbs)"
-        )
+        """Capture this call as a compiled-DAG node (ray_tpu_torch.dag;
+        reference: dag/dag_node.py bind): a ``DAGNode`` whose arguments may
+        be an ``InputNode``, other nodes or constants. Nothing runs until the
+        graph is compiled (``experimental_compile``) and executed."""
+        from ray_tpu_torch.dag.graph import DAGNode
+
+        return DAGNode(self._handle, self._name, args)
 
     def remote(self, *args, **kwargs):
         from ray_tpu_torch.core import api

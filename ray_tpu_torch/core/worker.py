@@ -531,14 +531,12 @@ class _StreamShipper:
 
 
 
-def _deferred_verb(verb: str):
-    """The compiled-DAG, collective-ring and elastic-fetch verbs of the
-    reference's worker need packages the port does not have yet (ROADMAP
-    Queue 1 item 2, the part left: the ring/elastic/DAG verbs, with the
-    train plane of item 3 and parallelism of item 5)."""
+def _deferred_verb(verb: str, item: str):
+    """The collective-ring and elastic-fetch verbs of the reference's worker
+    need packages the port does not have yet: the ring is ROADMAP Queue 1
+    item 3a (``collective/``), ``elastic_fetch`` item 3b (``elastic/``)."""
     raise NotImplementedError(
-        f"worker verb {verb!r} is not ported yet (ROADMAP Queue 1 item 2: "
-        "the ring/elastic/DAG verbs)"
+        f"worker verb {verb!r} is not ported yet (ROADMAP Queue 1 item {item})"
     )
 
 class CoreWorker:
@@ -2647,18 +2645,23 @@ class CoreWorker:
                 self._stream_cleanup(spec.task_id.binary())
 
 
-    # -- compiled DAG stages, the collective ring and the elastic train
-    # plane: the packages behind these verbs (dag, collective, elastic) are
-    # not ported yet, so each verb answers with a typed error naming the
-    # ROADMAP item, never a silent no-op (see _deferred_verb below).
+    # -- compiled DAG stages (ray_tpu_torch.dag; channels ride the existing
+    # peer connections — reference: compiled_dag_node.py exec loops +
+    # channels) --
     def handle_dag_setup(self, conn, p):
-        _deferred_verb("dag_setup")
+        from ray_tpu_torch.dag.runtime import dag_setup
+
+        return dag_setup(self, p)
 
     async def handle_dag_push(self, conn, p):
-        _deferred_verb("dag_push")
+        from ray_tpu_torch.dag.runtime import dag_push
+
+        return await dag_push(self, conn, p)
 
     def handle_dag_teardown(self, conn, p):
-        _deferred_verb("dag_teardown")
+        from ray_tpu_torch.dag.runtime import dag_teardown
+
+        return dag_teardown(self, p)
 
     def handle_store_path(self, conn, p):
         """Arena identity probe: same path = same node = zero-copy dag edges."""
@@ -2695,25 +2698,33 @@ class CoreWorker:
         return _profiler.local_fold(p)
 
     def handle_dag_shm_ack(self, conn, p):
-        _deferred_verb("dag_shm_ack")
+        from ray_tpu_torch.dag.runtime import dag_shm_ack
+
+        return dag_shm_ack(self, p)
 
     def handle_dag_result(self, conn, p):
-        _deferred_verb("dag_result")
+        from ray_tpu_torch.dag.runtime import dag_result
 
+        return dag_result(self, p)
+
+    # -- the collective ring and the elastic train plane: the packages
+    # behind these verbs (collective, elastic) are not ported yet, so each
+    # verb answers with a typed error naming the ROADMAP item, never a
+    # silent no-op (see _deferred_verb).
     def handle_collective_ring_hello(self, conn, p):
-        _deferred_verb("collective_ring_hello")
+        _deferred_verb("collective_ring_hello", "3a")
 
     def handle_collective_ring_ready(self, conn, p):
-        _deferred_verb("collective_ring_ready")
+        _deferred_verb("collective_ring_ready", "3a")
 
     def handle_collective_ring_meta(self, conn, p):
-        _deferred_verb("collective_ring_meta")
+        _deferred_verb("collective_ring_meta", "3a")
 
     def handle_collective_ring_abort(self, conn, p):
-        _deferred_verb("collective_ring_abort")
+        _deferred_verb("collective_ring_abort", "3a")
 
     async def handle_elastic_fetch(self, conn, p):
-        _deferred_verb("elastic_fetch")
+        _deferred_verb("elastic_fetch", "3b")
 
     def handle_shutdown(self, conn, p):
         self._shutdown = True

@@ -196,7 +196,8 @@ class LLMEngine:
         check_head_dim(cfg.head_dim, self.device)  # prefill runs K1 on the card
         if self.ec.tensor_parallel > 1:
             raise NotImplementedError(
-                "tensor_parallel > 1 is not ported yet (tensor-parallel serving is a later slice)")
+                "tensor_parallel > 1 is not ported yet (ROADMAP Queue 1 item 6: parallelism and "
+                "tensor-parallel serving)")
         if self.ec.max_seq <= 0:
             self.ec = dataclasses.replace(self.ec, max_seq=cfg.max_seq_len)
         S = self.ec.max_seq

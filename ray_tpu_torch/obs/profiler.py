@@ -617,30 +617,185 @@ def aggregate_status(rows: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# device-side (GPU) profiling — ONE entry point, typed-and-loud
+# device-side (GPU) profiling — ONE entry point, typed-and-loud on CPU
 # ---------------------------------------------------------------------------
-_DEVICE_DEFERRED = (
-    "device traces on torch.profiler are not ported yet (ROADMAP Queue 1 "
-    "item 2: the profiler's device capture); for host CPU profiles use "
-    "obs.profiler.capture"
-)
+# Chrome-trace categories torch.profiler gives the card's own work (CUPTI
+# activity records), as opposed to host ops, runtime calls and annotations.
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _require_device_torch(what: str):
+    """Import torch and demand a visible CUDA device, or raise the typed
+    error naming exactly what is missing (the reference's
+    ``_require_device_jax``)."""
+    try:
+        import torch
+    except Exception as e:
+        raise DeviceProfilerUnavailable(
+            f"{what}: torch is not importable on this host "
+            f"({type(e).__name__}: {e}); device profiling needs torch with "
+            "CUDA — for host CPU profiles use obs.profiler.capture instead"
+        ) from e
+    if not torch.cuda.is_available():
+        raise DeviceProfilerUnavailable(
+            f"{what}: no CUDA device on this host "
+            "(torch.cuda.is_available() is False) — device traces need device "
+            "work; for host CPU profiles use obs.profiler.capture instead")
+    return torch
+
+
+class DeviceTrace:
+    """What one ``device_capture`` window wrote: ``path`` (a Chrome trace
+    JSON) and ``wall_s`` (the window's wall time, entry to exit), both set
+    when the window closes."""
+
+    __slots__ = ("logdir", "path", "wall_s")
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self.path: Optional[str] = None
+        self.wall_s: Optional[float] = None
+
+    def summary(self) -> dict:
+        """``trace_summary`` of this window's trace over its wall time."""
+        if self.path is None:
+            raise RuntimeError("device trace window is still open")
+        return trace_summary(self.path, self.wall_s)
+
+
+def trace_summary(path: str, wall_s: Optional[float] = None) -> dict:
+    """Device time of a Chrome trace written by ``device_capture``: the
+    union of its device events' intervals (kernels, memcpys, memsets — the
+    CUPTI records, which cover every thread of the process, where the
+    profiler's host ops cover only the thread that entered it), launches
+    per kernel name, and with ``wall_s`` the busy share device / wall."""
+    import json
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = []
+    kernels: dict[str, int] = {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_EVENT_CATS:
+            continue
+        t0 = float(ev["ts"])
+        spans.append((t0, t0 + float(ev.get("dur", 0.0))))
+        if ev["cat"] == "kernel":
+            kernels[ev["name"]] = kernels.get(ev["name"], 0) + 1
+    spans.sort()
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    out = {"device_events": len(spans), "device_ms": busy_us / 1e3,
+           "kernels": kernels}
+    if wall_s is not None:
+        out["wall_ms"] = wall_s * 1e3
+        out["busy"] = busy_us / 1e6 / wall_s if wall_s > 0 else None
+    return out
 
 
 @contextlib.contextmanager
 def device_capture(logdir: str):
-    """Capture a device trace around a block of device work, as a bounded
-    profiler session — the single entry point `tracing.profile_tpu` routes
-    through. The reference captures a JAX (XPlane) trace; the port's
-    counterpart on torch.profiler is not written yet, so this raises the
-    typed error at entry, never an empty trace."""
-    raise NotImplementedError(_DEVICE_DEFERRED)
-    yield  # pragma: no cover - keeps this a generator
+    """Capture a device trace (``torch.profiler``, CPU and CUDA activities;
+    a Chrome trace viewable in Perfetto) around a block of device work, as a
+    bounded profiler session — the single entry point
+    ``tracing.profile_tpu`` routes through. Yields a ``DeviceTrace`` whose
+    ``path`` and ``wall_s`` are set at exit; the card is synchronised before
+    the profiler stops, so work queued in the window is in its trace.
+
+    Raises ``DeviceProfilerUnavailable`` at entry on a host without a CUDA
+    device. A profiler error propagates, and a trace that holds no device
+    event raises at exit: never an empty trace in silence."""
+    torch = _require_device_torch("device_capture")
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    out = DeviceTrace(logdir)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The session opens once the profiler records (its first start in a
+        # process can take seconds), so an open "device" session in
+        # status() means work from now on is in the trace.
+        sid = _sampler.session_begin("device", note=logdir)
+        try:
+            t0 = time.perf_counter()
+            yield out
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            _sampler.session_end(sid)
+    path = os.path.join(logdir, f"device-{os.getpid()}-{int(time.time() * 1e3)}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if trace_summary(path)["device_events"] == 0:
+        raise RuntimeError(
+            f"device_capture: the trace {path} holds no device event (no "
+            "kernel, memcpy or memset ran in the window, or the profiler "
+            "recorded none)")
+    out.path, out.wall_s = path, wall_s
 
 
-def device_server(port: int = 9012):
-    """Start a profiler server for remote capture (the reference's JAX
-    profiler server); not ported yet."""
-    raise NotImplementedError(_DEVICE_DEFERRED)
+class DeviceServer:
+    """A listener on ``port`` in the calling process (``device_server``).
+    One HTTP request ``GET /capture?seconds=S&logdir=DIR`` runs one bounded
+    ``device_capture`` here for S seconds (at most ``MAX_CAPTURE_S``) and
+    answers JSON ``{"path", "wall_ms", "device_ms", "busy", "kernels",
+    "device_events"}``; an error answers 500 with ``{"error": ...}``.
+    ``close()`` stops it."""
+
+    def __init__(self, port: int):
+        import http.server
+        import json
+        import urllib.parse
+
+        lock = threading.Lock()
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 - http.server's name
+                url = urllib.parse.urlparse(self.path)
+                q = urllib.parse.parse_qs(url.query)
+                if url.path != "/capture" or "logdir" not in q:
+                    self._reply(404, {"error": "GET /capture?seconds=S&logdir=DIR"})
+                    return
+                seconds = min(max(0.0, float(q.get("seconds", ["1"])[0])), MAX_CAPTURE_S)
+                try:
+                    with lock:  # one torch.profiler session at a time
+                        with device_capture(q["logdir"][0]) as tr:
+                            time.sleep(seconds)
+                    self._reply(200, {"path": tr.path, **tr.summary()})
+                except Exception as e:  # noqa: BLE001 - answered, not swallowed
+                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+            def _reply(self, code, body):
+                data = json.dumps(body).encode()
+                self.send_response(code)
+                self.send_header("content-type", "application/json")
+                self.send_header("content-length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer(("127.0.0.1", port), _Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="device-profiler-server", daemon=True)
+        self._thread.start()
+
+    def close(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join()
+
+
+def device_server(port: int = 9012) -> DeviceServer:
+    """Start a device-profiler listener for remote capture (the reference
+    starts the JAX profiler server here; torch has no counterpart, so the
+    port serves its own one-request protocol, ``DeviceServer``; port 0
+    picks a free one). Typed-and-loud without a CUDA device."""
+    _require_device_torch("device_server")
+    return DeviceServer(port)
 
 
 def device_memory_records(ts: Optional[float] = None) -> list[dict]:

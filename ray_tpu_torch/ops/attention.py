@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -167,8 +168,27 @@ def _seg_arg(segment_ids, B, S, device):
     return segment_ids.to(device=device, dtype=torch.int32).contiguous()
 
 
+_BOUND = threading.local()  # per thread: the devices whose context _stream bound
+
+
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on t's device, for a launch.
+
+    K1, K3 and K2 encode their TMA tensor maps through the driver API
+    before any runtime call, and the driver needs the device's primary
+    context current on the calling thread. torch makes it current only on a
+    thread where it has called the runtime, so on a thread whose first work
+    on the card is one of these kernels (its tensors restored on another
+    thread, its outputs served from the allocator's cache) the encoding
+    fails with cudaErrorInvalidValue unless something binds it first. A
+    stream query, a runtime call, binds it: once per thread and device."""
+    stream = torch.cuda.current_stream(t.device)
+    bound = _BOUND.__dict__.setdefault("devices", set())
+    if t.device.index not in bound:
+        with torch.cuda.device(t.device):
+            stream.query()
+        bound.add(t.device.index)
+    return stream.cuda_stream
 
 
 def flash_fwd(q, k, v, segment_ids=None, causal=True, scale=None):

@@ -3,9 +3,9 @@
 Role-equivalent to the reference's tracing stack (SURVEY §5): the C++
 TaskEventBuffer -> GcsTaskManager -> `ray timeline` pipeline
 (src/ray/core_worker/task_event_buffer.h) becomes per-worker event buffers
-shipped with the metrics reporter and aggregated on the controller. (The
-reference's device-trace capture on the JAX profiler becomes torch.profiler
-in the port later; ``profile_tpu`` raises until then.)
+shipped with the metrics reporter and aggregated on the controller. Device
+traces (``profile_tpu``) are torch.profiler captures through
+``obs.profiler.device_capture``, where the reference captures a JAX trace.
 
 Distributed tracing (this module's Span API): a trace context
 ``(trace_id, span_id)`` rides a contextvar inside one process and the
@@ -377,20 +377,25 @@ def render_timeline(events: list[dict], path: str) -> int:
 
 @contextlib.contextmanager
 def profile_tpu(logdir: str):
-    """Capture a device trace around a block of device work (the reference
-    captures a JAX XPlane trace here). Routed through the obs.profiler
-    capture-session API, ONE entry point for device profiling; the port's
-    torch.profiler capture is not written yet, so this raises a typed
-    ``NotImplementedError`` at entry (ROADMAP Queue 1 item 2)."""
+    """Capture a torch.profiler device trace (a Chrome trace under
+    ``logdir``; the reference captures a JAX XPlane trace here) around a
+    block of device work; yields the ``obs.profiler.DeviceTrace``.
+
+    Routed through the obs.profiler capture-session API (ONE entry point
+    for device profiling: session-bounded, visible in profiler status).
+    On a host without a CUDA device this raises
+    obs.profiler.DeviceProfilerUnavailable at entry — a typed, named
+    refusal instead of a silent empty trace."""
     from ray_tpu_torch.obs import profiler as _profiler
 
-    with _profiler.device_capture(logdir):
-        yield
+    with _profiler.device_capture(logdir) as trace:
+        yield trace
 
 
 def profile_server(port: int = 9012):
-    """Start a profiler server for on-demand remote capture (the reference's
-    JAX profiler server). Not ported yet: raises like profile_tpu."""
+    """Start the device-profiler listener for on-demand remote capture
+    (``obs.profiler.device_server``: one request runs one bounded capture in
+    this process). Same typed-and-loud gate as profile_tpu."""
     from ray_tpu_torch.obs import profiler as _profiler
 
     return _profiler.device_server(port)

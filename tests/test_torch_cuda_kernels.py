@@ -290,3 +290,44 @@ def test_paged_kernel_is_deterministic_and_resets_its_counters(dev):
     torch.cuda.synchronize()
     assert torch.equal(o1, o2)
     assert not pa._COUNTERS[o1.device].any()
+
+
+def test_flash_kernels_launch_first_from_a_fresh_thread(dev):
+    """K1, K3 and K2 launched first from a thread that has done no CUDA work
+    of its own (the inputs made on this thread, the outputs' memory served
+    from the allocator's cache), as a compiled DAG's stage method runs on
+    its actor's pool thread after the edge restored its tensors on the IO
+    thread: they run and give the bits of the same launches on this thread
+    (the kernels are deterministic). Before ops.attention._stream bound the
+    device's context for the thread, K1 failed there with
+    cudaErrorInvalidValue."""
+    import threading
+
+    from ray_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(2, 256, 4, 64, device=dev, generator=g).bfloat16()
+    k, v = (torch.randn(2, 256, 2, 64, device=dev, generator=g).bfloat16() for _ in range(2))
+    do = torch.randn(2, 256, 4, 64, device=dev, generator=g).bfloat16()
+    want_o, want_lse = att.flash_fwd(q, k, v)
+    want = att.flash_bwd(q, k, v, want_o, want_lse, do)
+    # Free blocks of the outputs' sizes, so the thread's allocations come
+    # from the cache and need no runtime call of their own.
+    spare = [torch.empty_like(t) for t in (q, want_lse, q, k, v)]
+    del spare
+    torch.cuda.synchronize()
+    got, errors = {}, []
+
+    def run():
+        try:
+            got["fwd"] = att.flash_fwd(q, k, v)
+            got["bwd"] = att.flash_bwd(q, k, v, *got["fwd"], do)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001  (asserted below)
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got["fwd"] + got["bwd"], (want_o, want_lse) + want))

@@ -161,9 +161,9 @@ def test_dense_and_paged_layouts_agree_and_warmup_leaves_no_trace():
 def test_later_slice_options_raise(option):
     """The prefix cache and chunked prefill are ported but need the paged
     layout (ValueError, as in ray_tpu); tensor-parallel serving is a later
-    slice (NotImplementedError)."""
+    slice (NotImplementedError naming its ROADMAP item)."""
     if "tensor_parallel" in option:
-        exc, match = NotImplementedError, "later slice"
+        exc, match = NotImplementedError, "ROADMAP Queue 1 item 6"
     else:
         exc, match = ValueError, "requires kv_layout='paged'"
     with pytest.raises(exc, match=match):

@@ -1,10 +1,10 @@
 """The port stands alone: importing ray_tpu_torch (the serving surface
 included) brings in neither jax nor any ray_tpu module, its stdlib-only
 modules (tokenizer, metrics, tracing, qos, the HTTP types) and its runtime
-(core, obs, chaos, accel, serve, scale) bring in no torch, its engine runs
+(core, obs, chaos, accel, serve, scale, dag) bring in no torch, its engine runs
 on the GPU unless told otherwise, and a worker process of a port cluster,
 a serve replica hosting the engine included, loads neither jax nor any
-ray_tpu module."""
+ray_tpu module, nor does either stage of a compiled DAG."""
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +20,7 @@ import ray_tpu_torch.core.node, ray_tpu_torch.core.controller, ray_tpu_torch.sta
 import ray_tpu_torch.obs, ray_tpu_torch.obs.profiler, ray_tpu_torch.chaos, ray_tpu_torch.accel
 import ray_tpu_torch.serve, ray_tpu_torch.scale, ray_tpu_torch.serve.controller, ray_tpu_torch.serve.replica
 import ray_tpu_torch.serve.protocol
+import ray_tpu_torch.dag, ray_tpu_torch.dag.runtime, ray_tpu_torch.chaos.invariants
 assert "torch" not in sys.modules, "a stdlib-only module imported torch"
 assert "jax" not in sys.modules, "the runtime imported jax"
 leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]
@@ -125,5 +126,52 @@ def test_serve_replica_loads_no_jax_and_no_ray_tpu():
     port's replica, and nothing of jax or ray_tpu."""
     out = subprocess.run([sys.executable, "-c", _REPLICA_PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+_DAG_PROBE = """
+import sys
+import torch
+import ray_tpu_torch as rt
+from ray_tpu_torch.dag import InputNode
+
+@rt.remote
+class Stage:
+    def apply(self, x):
+        return x * 2
+
+    def modules(self):
+        import sys
+        return sorted(sys.modules)
+
+rt.init(num_cpus=2)
+try:
+    a, b = Stage.remote(), Stage.remote()
+    with InputNode() as inp:
+        out = b.apply.bind(a.apply.bind(inp))
+    dag = out.experimental_compile()
+    try:
+        x = torch.arange(1 << 20, dtype=torch.float32)  # 4 MiB: the shared-memory edge
+        assert torch.equal(dag.execute(x).result(timeout=120), x * 4)
+    finally:
+        dag.teardown()
+    for mods in rt.get([a.modules.remote(), b.modules.remote()], timeout=60) + [sorted(sys.modules)]:
+        assert "ray_tpu_torch.dag.runtime" in mods or "ray_tpu_torch.dag.graph" in mods, mods
+        bad = [m for m in mods if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+        assert not bad, bad
+finally:
+    rt.shutdown()
+print("clean")
+"""
+
+
+def test_dag_stages_load_no_jax_and_no_ray_tpu():
+    """A two-stage compiled DAG on a port cluster carries a torch tensor
+    over the shared-memory edge; the driver and both stages' processes then
+    report their sys.modules: the port's dag, and nothing of jax or
+    ray_tpu."""
+    out = subprocess.run([sys.executable, "-c", _DAG_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "clean"
