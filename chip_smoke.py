@@ -226,6 +226,28 @@ Phases, in order; any failure exits non-zero:
      one-edge DAG carries bf16 CUDA tensors of 64 KiB to 256 MiB from stage
      A to stage B, which checks their bits by an integer checksum; p50
      execute latency of 5 and GB/s printed beside 6f's bf16 put / get.
+  6i. data-batch-250M: Data on the runtime (ray_tpu_torch.data; 6f's session:
+     GPU 1, the 2 GiB store). (a) phase 6's 32 prompts of 512 token ids as
+     rows {"prompt", "i"} in 4 blocks (rd.from_items, parallelism 4) through
+     batch_generate (phase 6's model and engine config, paged, page 128, 32
+     slots, seed 0; 64 greedy tokens) on a pool of two actors of
+     ray_remote_args {"num_gpus": 0.5}; each actor's engine draws phase 6's
+     seed-0 weights on the card. Gates: every row's tokens equal phase 6's
+     (up to and with the first eos, token 2, which batch_generate's engines
+     stop on and phase 6's does not), both actors took blocks, and K1 and K4
+     launched in each actor's own process and never in the driver (the
+     stage's UDF is _EngineUDF wrapped by _data_udf, which only observes).
+     Printed, not gated: rows/s and output tok/s beside phase 6's engine
+     tok/s, the time from the start of the consumption to the first block,
+     each actor's engine construction time, calls and peak memory. (b) 3
+     seeded token batches at the training cell's shape (B 16 x 2049, int32)
+     through rd.from_numpy -> iter_torch_batches -> prefetch_to_device (side
+     stream, pinned staging) into make_train_step (phase 7's configuration,
+     fresh state of seed 0), then the same steps from a fresh state on the
+     same arrays moved by a plain .cuda(). Gates: the batches equal, the
+     losses bitwise equal, launches K1 24 / K3 12 / K2 12 per step. Printed:
+     the infeed's H2D GB/s beside a bare .cuda() of the same batches, over
+     one stream of 30 training batches (262 KB each) and of 3 of 64 MiB.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -260,7 +282,7 @@ Phases, in order; any failure exits non-zero:
      [8, 4096, 256000] logits never exist; a fallback to them is an error).
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
-     {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"train": ...},
+     {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"data": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
@@ -2672,6 +2694,246 @@ def phase_dag(dev, transport):
     return stats, {"flash_fwd": launches}
 
 
+# Phase 6i: Data on the runtime. (a) batch_generate over phase 6's prompts as
+# DATA_BLOCKS blocks on a pool of DATA_POOL actors, each a DATA_GPU_SHARE of
+# the card; (b) INGEST_STEPS training steps fed by Data through
+# prefetch_to_device, against the same batches moved by a plain .cuda().
+DATA_BLOCKS, DATA_POOL, DATA_GPU_SHARE, INGEST_STEPS, INGEST_REPS = 4, 2, 0.5, 3, 5
+INGEST_STREAM = 10  # the H2D rate at the training batch: its 3 batches, 10 times over
+EOS = 2  # the default tokenizer's eos id, which batch_generate's engines stop on
+
+
+def _data_udf(base):
+    """A pool UDF around `base` (batch_generate's _EngineUDF) that only
+    observes: each output row also carries its actor's pid, the call's number
+    on that actor, the K1 / K4 launches of that call in the actor's own
+    process, the actor's engine construction time and its peak memory."""
+
+    class CountedUDF(base):
+        def __init__(self, *args, **kwargs):
+            import torch
+
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            torch.cuda.synchronize()
+            self._init_s, self._calls = time.perf_counter() - t0, 0
+
+        def __call__(self, rows):
+            import torch
+
+            from ray_tpu_torch.ops import attention, paged_attention
+
+            k1, k4 = attention.LAUNCHES, paged_attention.LAUNCHES
+            t0 = time.perf_counter()
+            out = super().__call__(rows)
+            torch.cuda.synchronize()
+            self._calls += 1
+            info = dict(_pid=os.getpid(), _call=self._calls, _k1=attention.LAUNCHES - k1,
+                        _k4=paged_attention.LAUNCHES - k4, _call_s=time.perf_counter() - t0,
+                        _init_s=self._init_s, _peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            return [dict(r, **info) for r in out]
+
+    CountedUDF.__name__ = CountedUDF.__qualname__ = f"Counted{base.__name__}"
+    return CountedUDF
+
+
+def _data_batch(rt, rd, engine_only, phase6):
+    """6i(a): batch_generate of phase 6's prompts on a pool of two GPU
+    actors; returns (stats, launches by kernel)."""
+    from ray_tpu_torch.llm import batch_generate
+    from ray_tpu_torch.llm.batch import _EngineUDF
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    prompts, want = phase6
+    ds = rd.from_items([{"prompt": [int(t) for t in p], "i": i} for i, p in enumerate(prompts)],
+                       parallelism=DATA_BLOCKS)
+    out = batch_generate(ds, MODEL, dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0),
+                         {"max_tokens": MAX_TOKENS}, concurrency=DATA_POOL,
+                         ray_remote_args={"num_gpus": DATA_GPU_SHARE})
+    out._leaf.fn = _data_udf(_EngineUDF)  # the stage's options and arguments stay
+    attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    rows, first_s = [], None
+    t0 = time.perf_counter()
+    for blk in out.iter_blocks():  # what take_all() does, with the first block's arrival
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        rows.extend(blk.to_pylist())
+    wall = time.perf_counter() - t0
+    driver = (attention.LAUNCHES, paged_attention.LAUNCHES)
+    rows.sort(key=lambda r: r["i"])
+    calls = {(r["_pid"], r["_call"]): r for r in rows}
+    actors = {}
+    for (pid, _), r in sorted(calls.items()):
+        a = actors.setdefault(pid, dict(blocks=0, rows=0, k1=0, k4=0, call_s=[], init_s=r["_init_s"]))
+        a["blocks"] += 1
+        a["k1"] += r["_k1"]
+        a["k4"] += r["_k4"]
+        a["call_s"].append(r["_call_s"])
+        a["peak_mem_gb"] = max(a.get("peak_mem_gb", 0.0), r["_peak_mem_gb"])
+    for r in rows:
+        actors[r["_pid"]]["rows"] += 1
+    # Phase 6's engine stops on no token; batch_generate's on the tokenizer's
+    # eos: its tokens are phase 6's up to and with the first eos.
+    expect = {}
+    for i in range(len(prompts)):
+        toks = want[f"r{i}"]
+        expect[i] = toks[:toks.index(EOS) + 1] if EOS in toks else toks
+    bad = [r["i"] for r in rows if r["generated_text_tokens"] != expect[r["i"]]]
+    n_tok = sum(len(r["generated_text_tokens"]) for r in rows)
+    stats = dict(rows=len(rows), blocks=len(calls), wall_s=wall, rows_per_s=len(rows) / wall,
+                 tok_s=n_tok / wall, first_block_s=first_s, eos_cut=sum(EOS in want[f"r{i}"] for i in expect),
+                 phase6_tok_s=engine_only["tok_s"],
+                 actors=[dict(a, pid=pid) for pid, a in sorted(actors.items())])
+    log(f"data (a): batch_generate of {len(rows)} rows in {len(calls)} blocks on {len(actors)} pool actors "
+        f"(num_gpus {DATA_GPU_SHARE} each): wall {wall:.3f} s, {stats['rows_per_s']:.3f} rows/s, "
+        f"{stats['tok_s']:.1f} output tok/s (phase 6's engine: {engine_only['tok_s']:.1f} tok/s), "
+        f"take_all -> first block {first_s:.3f} s")
+    for pid, a in sorted(actors.items()):
+        log(f"  actor pid {pid}: {a['blocks']} blocks, {a['rows']} rows, engine construction {a['init_s']:.3f} s, "
+            f"calls {' '.join(f'{x:.3f}' for x in a['call_s'])} s, K1 {a['k1']} K4 {a['k4']}, "
+            f"peak mem {a['peak_mem_gb']:.2f} GB")
+    log(f"  tokens equal to phase 6's (cut at eos in {stats['eos_cut']}): {not bad}; launches in the driver: "
+        f"K1 {driver[0]} K4 {driver[1]}")
+    if len(rows) != len(prompts) or sorted(r["i"] for r in rows) != list(range(len(prompts))):
+        raise AssertionError(f"6i: batch_generate returned {len(rows)} rows for {len(prompts)} prompts")
+    if bad:
+        raise AssertionError(f"6i: {len(bad)} rows' tokens differ from phase 6's: rows {bad[:4]}")
+    if len(actors) != DATA_POOL or min(a["blocks"] for a in actors.values()) < 1:
+        raise AssertionError(f"6i: blocks by actor {[a['blocks'] for a in actors.values()]}: "
+                             f"both pool actors must take blocks")
+    if not all(a["k1"] > 0 and a["k4"] > 0 for a in actors.values()) or driver != (0, 0):
+        raise AssertionError(f"6i: K1/K4 by actor {[(a['k1'], a['k4']) for a in actors.values()]}, "
+                             f"in the driver {driver}: both must launch in every pool actor, none in the driver")
+    launches = {"flash_fwd": sum(a["k1"] for a in actors.values()),
+                "paged_decode": sum(a["k4"] for a in actors.values())}
+    return stats, launches
+
+
+def _data_ingest(rd, dev, card):
+    """6i(b): INGEST_STEPS training steps at the training cell's shape fed
+    from rd.from_numpy through iter_torch_batches and prefetch_to_device,
+    then the same steps from a fresh state on the same batches moved by a
+    plain .cuda(): the losses must be bitwise equal. Returns (stats, the
+    infeed run's launches)."""
+    import torch
+
+    from ray_tpu_torch.data import prefetch_to_device
+    from ray_tpu_torch.models import TransformerConfig, make_train_step
+    from ray_tpu_torch.ops import attention
+
+    cfg = TransformerConfig(**MODEL, remat=True, remat_policy="dots")
+    rng = np.random.default_rng(12)
+    arrays = [rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), dtype=np.int32) for _ in range(INGEST_STEPS)]
+    ds = rd.from_numpy(arrays)
+    plain = [{"tokens": torch.from_numpy(a).to(torch.int64).cuda()} for a in arrays]
+
+    def run(batches):
+        init_state, train_step = make_train_step(cfg)
+        state = init_state(torch.Generator(device=dev).manual_seed(0), device=dev)
+        losses, seen = [], []
+        for b in batches:
+            seen.append(b["tokens"])
+            losses.append(train_step(state, b)["loss"].detach())
+        torch.cuda.synchronize()
+        del state
+        return torch.stack(losses), seen
+
+    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+    fed = prefetch_to_device(ds.iter_torch_batches(batch_size=TRAIN_B), device=dev,
+                             transform=lambda b: {"tokens": b["data"]})
+    l_fed, seen = run(fed)
+    launches = {"flash_fwd": attention.LAUNCHES, "flash_bwd_dq": attention.BWD_DQ_LAUNCHES,
+                "flash_bwd_dkv": attention.BWD_DKV_LAUNCHES}
+    torch.cuda.empty_cache()
+    l_plain, _ = run(plain)
+    torch.cuda.empty_cache()
+    same_tokens = len(seen) == INGEST_STEPS and all(
+        x.is_cuda and x.dtype == y["tokens"].dtype and torch.equal(x, y["tokens"]) for x, y in zip(seen, plain))
+    same_loss = torch.equal(l_fed, l_plain)
+
+    # H2D rates: the infeed beside a bare .cuda() of the same batches, each
+    # over one stream of many batches (steady state, as a training loop
+    # sees it), at the training batch and at 64 MiB a batch.
+    host = [{"data": np.array(b["data"])} for b in ds.iter_batches(batch_size=TRAIN_B)]  # writable
+    h2d = {"train_batch": _h2d_rates(dev, host * INGEST_STREAM),
+           "64MiB": _h2d_rates(dev, [{"data": np.full(16 << 20, i, np.float32)} for i in range(3)])}
+    want = {"flash_fwd": 2 * cfg.n_layers * INGEST_STEPS, "flash_bwd_dq": cfg.n_layers * INGEST_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * INGEST_STEPS}
+    stats = dict(steps=INGEST_STEPS, batch=[TRAIN_B, TRAIN_S + 1], losses_fed=l_fed.tolist(),
+                 losses_plain=l_plain.tolist(), bitwise_equal=same_loss, h2d=h2d, card=card)
+    log(f"data (b): {INGEST_STEPS} training steps (B {TRAIN_B} x S {TRAIN_S}) fed by rd.from_numpy -> "
+        f"iter_torch_batches -> prefetch_to_device: losses {' '.join(f'{x:.6f}' for x in stats['losses_fed'])}; "
+        f"plain .cuda(): {' '.join(f'{x:.6f}' for x in stats['losses_plain'])}; bitwise equal {same_loss}; "
+        f"tokens equal {same_tokens}")
+    for name, r in h2d.items():
+        log(f"  H2D {name}: {r['batches']} batches of {r['batch_bytes']} B in one stream: infeed "
+            f"{r['infeed_gb_s']:.3f} GB/s, bare .cuda() {r['bare_cuda_gb_s']:.3f} GB/s (median of {INGEST_REPS})  "
+            f"[{card}]")
+    log(f"  launches K1 {launches['flash_fwd']} K3 {launches['flash_bwd_dq']} K2 {launches['flash_bwd_dkv']}")
+    if not same_tokens:
+        raise AssertionError("6i(b): the infeed's token batches differ from the seeded arrays")
+    if not (same_loss and bool(torch.isfinite(l_fed).all())):
+        raise AssertionError(f"6i(b): losses through the infeed {l_fed.tolist()} are not bitwise equal to the "
+                             f"plain feed's {l_plain.tolist()}")
+    if launches != want:
+        raise AssertionError(f"6i(b): launches in {INGEST_STEPS} steps {launches} != {want}")
+    return stats, launches
+
+
+def _h2d_rates(dev, batches):
+    """GB/s of prefetch_to_device over `batches` (one generator) beside a
+    bare .cuda() of each, the median of INGEST_REPS; the two copies must
+    be equal."""
+    import torch
+
+    from ray_tpu_torch.data import prefetch_to_device
+
+    nbytes = sum(b["data"].nbytes for b in batches)
+    fed_s, bare_s = [], []
+    for _ in range(INGEST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(prefetch_to_device(iter(batches), device=dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = [torch.from_numpy(b["data"]).cuda() for b in batches]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fed_s.append(t1 - t0)
+        bare_s.append(t2 - t1)
+        if not all(torch.equal(g["data"], r) for g, r in zip(got, ref)):
+            raise AssertionError("6i(b): the infeed's batch differs from the bare .cuda() copy")
+        del got, ref
+    return dict(batches=len(batches), batch_bytes=nbytes // len(batches),
+                infeed_gb_s=nbytes / statistics.median(fed_s) / 1e9,
+                bare_cuda_gb_s=nbytes / statistics.median(bare_s) / 1e9)
+
+
+def phase_data(dev, card, engine_only, phase6):
+    """Phase 6i (data-batch-250M): Data on the port's runtime, rt.init(GPU 1,
+    the 2 GiB store). (a) batch_generate over phase 6's 32 prompts on a pool
+    of two num_gpus=0.5 actors (gates: every row's tokens equal phase 6's,
+    both actors took blocks, K1 and K4 launched in each actor's process and
+    none in the driver); (b) the training step fed through the infeed
+    (gate: losses bitwise equal to a plain .cuda() feed). Returns (stats,
+    (a)'s launches, (b)'s launches)."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.core import api as rt_api
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS, resources={"GPU": 1}, object_store_memory=RT_STORE_BYTES)
+    try:
+        log(f"data: rt.init {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+        batch, b_launches = _data_batch(rt, rd, engine_only, phase6)
+        ingest, i_launches = _data_ingest(rd, dev, card)
+    finally:
+        rt.shutdown()
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    return dict(batch=batch, ingest=ingest), b_launches, i_launches
+
+
 def _ttft_count():
     """Observations in this process's serve.ttft_s histogram."""
     from ray_tpu_torch.util import metrics
@@ -2940,14 +3202,17 @@ def _run(args, dev, rng):
     rt_serve, r_launches = phase_serve_runtime(dev, stats, phase6)
     app_serve, a_launches = phase_serve_app(dev, stats, phase6, oai)
     dag, d_launches = phase_dag(dev, rt_serve["transport"])
+    data, db_launches, di_launches = phase_data(dev, card, stats, phase6)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
     # Launches by path: serve, serve_prefix, serve_openai, serve_runtime,
-    # serve_app, dag and train are the 250M cells (D 64); serve_mistral7b and train_mistral7b the 7B cells
+    # serve_app, dag, data_batch, data_ingest and train are the 250M cells
+    # (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
-             "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "train": t_launches,
+             "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "data_batch": db_launches,
+             "data_ingest": di_launches, "train": t_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -2984,6 +3249,7 @@ def _run(args, dev, rng):
     log(json.dumps({"engine_runtime": rt_serve}))
     log(json.dumps({"engine_serve_app": app_serve}))
     log(json.dumps({"dag": dag}))
+    log(json.dumps({"data": data}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))

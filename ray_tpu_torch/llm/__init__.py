@@ -5,8 +5,8 @@ serving surface on it (counterpart of ``ray_tpu.llm``).
 behind a stepping thread for concurrent blocking and streaming callers;
 ``OpenAIServer`` speaks text (completions, chat, SSE) through a
 ``Tokenizer``. ``build_llm_app`` / ``build_openai_app`` make serve
-applications of them. ``batch_generate`` is not ported yet (it needs the
-port's ``data/``) and raises.
+applications of them; ``batch_generate`` maps a Dataset of prompts through
+an actor pool of engines.
 
 The names below load on first use, so importing a torch-free submodule
 (``ray_tpu_torch.llm.tokenizer``) does not import torch.

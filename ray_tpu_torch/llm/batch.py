@@ -1,13 +1,13 @@
-"""LLM batch inference: the engine as a stateful map over blocks of rows.
+"""LLM batch inference over Datasets: the engine as a stateful Data stage.
 
-Counterpart of ``ray_tpu/llm/batch.py``'s ``_EngineUDF``: constructed once
-(it loads the engine and the tokenizer), then called on a list of rows;
-every row of a block is admitted to the engine's continuous-batching loop
-TOGETHER, so the block shares prefill groups and decode blocks.
-
-Not ported yet: ``batch_generate`` (a Dataset's actor-pool
-``map_batches``), which needs ``ray_tpu_torch/data/`` (``ROADMAP.md``, Queue
-1 item 8); it raises. Until then call the UDF directly on rows.
+Counterpart of ``ray_tpu/llm/batch.py`` (the reference's vLLMEngineStage:
+the engine runs inside actor-pool UDFs, so the model loads once per actor
+and blocks of prompts stream through). ``_EngineUDF`` is constructed once
+per pool actor (it loads the engine and the tokenizer), then called on a
+block of rows; every row of a block is admitted to the engine's
+continuous-batching loop TOGETHER, so the block shares prefill groups and
+decode blocks. ``batch_generate`` is the actor-pool ``map_batches`` of
+``ray_tpu_torch.data`` over it.
 """
 from __future__ import annotations
 
@@ -81,9 +81,34 @@ class _EngineUDF:
 
 
 def batch_generate(ds, model_config: dict, engine_config: Optional[dict] = None,
-                   sampling: Optional[dict] = None, **kwargs):
-    """Map a Dataset of prompts through an actor pool of engines: not ported
-    yet, it needs the port's ``data/`` package."""
-    raise NotImplementedError(
-        "batch_generate needs Data's actor-pool map_batches, ray_tpu_torch/data/ "
-        "(ROADMAP.md, Queue 1 item 8); call _EngineUDF on rows meanwhile")
+                   sampling: Optional[dict] = None, *,
+                   concurrency=1,
+                   tokenizer: Optional[str] = None,
+                   input_column: str = "prompt",
+                   output_column: str = "generated_text",
+                   ray_remote_args: Optional[dict] = None,
+                   device=None):
+    """Map a Dataset of prompts through an actor pool of engines.
+
+    ds rows carry `input_column` (text, or a token-id list); the result adds
+    `output_column` (text) and `output_column + "_tokens"`. concurrency:
+    int or (min, max) pool size; each pool actor loads the model ONCE (pass
+    ray_remote_args={"num_gpus": f} to give each actor its share of a card).
+    device: None is the GPU (each engine raises when its actor sees none);
+    pass device="cpu" for the CPU. Lazy like every Data op: executes when
+    the dataset is consumed.
+    """
+    return ds.map_batches(
+        _EngineUDF,
+        compute="actors",
+        concurrency=concurrency,
+        batch_format="rows",
+        fn_constructor_args=(
+            model_config, engine_config, sampling, tokenizer,
+            input_column, output_column, device,
+        ),
+        ray_remote_args=ray_remote_args,
+        # An engine consumes a whole block per call; queueing more than one
+        # extra block per actor just pins memory.
+        max_tasks_in_flight_per_actor=2,
+    )

@@ -4,7 +4,8 @@ modules (tokenizer, metrics, tracing, qos, the HTTP types) and its runtime
 (core, obs, chaos, accel, serve, scale, dag) bring in no torch, its engine runs
 on the GPU unless told otherwise, and a worker process of a port cluster,
 a serve replica hosting the engine included, loads neither jax nor any
-ray_tpu module, nor does either stage of a compiled DAG."""
+ray_tpu module, nor does either stage of a compiled DAG, a Data actor
+pool's worker or a streaming split's consumer."""
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +22,7 @@ import ray_tpu_torch.obs, ray_tpu_torch.obs.profiler, ray_tpu_torch.chaos, ray_t
 import ray_tpu_torch.serve, ray_tpu_torch.scale, ray_tpu_torch.serve.controller, ray_tpu_torch.serve.replica
 import ray_tpu_torch.serve.protocol
 import ray_tpu_torch.dag, ray_tpu_torch.dag.runtime, ray_tpu_torch.chaos.invariants
+import ray_tpu_torch.data, ray_tpu_torch.util.dtypes
 assert "torch" not in sys.modules, "a stdlib-only module imported torch"
 assert "jax" not in sys.modules, "the runtime imported jax"
 leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]
@@ -173,5 +175,55 @@ def test_dag_stages_load_no_jax_and_no_ray_tpu():
     ray_tpu."""
     out = subprocess.run([sys.executable, "-c", _DAG_PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+_DATA_PROBE = """
+import sys
+import ray_tpu_torch.data as rd
+bad = [m for m in sys.modules if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+assert not bad, bad
+import ray_tpu_torch as rt
+
+def _bad():
+    import sys
+    return [m for m in sys.modules if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+
+class Pool:
+    def __call__(self, batch):
+        import sys
+        n = len(batch["id"])
+        return {"id": batch["id"], "bad": [",".join(_bad())] * n,
+                "pool": ["ray_tpu_torch.data.executor" in sys.modules] * n}
+
+@rt.remote
+class Consumer:
+    def run(self, it):
+        rows = sum(b.num_rows for b in it.iter_blocks())
+        return rows, _bad(), "ray_tpu_torch.data.dataset" in sys.modules
+
+rt.init(num_cpus=4)
+try:
+    rows = rd.range(16, parallelism=4).map_batches(Pool, compute="actors", concurrency=1).take_all()
+    assert sorted(r["id"] for r in rows) == list(range(16))
+    assert all(r["pool"] for r in rows) and not any(r["bad"] for r in rows), rows
+    its = rd.range(16, parallelism=4).streaming_split(2)
+    consumers = [Consumer.remote() for _ in its]
+    got = rt.get([c.run.remote(it) for c, it in zip(consumers, its)], timeout=120)
+    assert sum(n for n, _, _ in got) == 16 and all(not b and d for _, b, d in got), got
+    assert not _bad(), _bad()
+finally:
+    rt.shutdown()
+print("clean")
+"""
+
+
+def test_data_pool_and_split_consumer_load_no_jax_and_no_ray_tpu():
+    """``import ray_tpu_torch.data`` in the driver, a Data actor pool's worker
+    (map_batches with compute="actors") and a streaming_split consumer
+    actor load neither jax nor any ray_tpu module."""
+    out = subprocess.run([sys.executable, "-c", _DATA_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "clean"
