@@ -280,10 +280,41 @@ Phases, in order; any failure exits non-zero:
      of 18 layers (1.489B parameters; the whole model's AdamW state is
      ~48 GB), with the loss over sequence chunks of 1024 (ce_chunk: the
      [8, 4096, 256000] logits never exist; a fallback to them is an error).
+  7g. train-plane-250M: the train plane (ray_tpu_torch.train, collective,
+     ckpt) on the port's runtime (rt.init GPU 1, the 2 GiB store), at 7(d)'s
+     configuration, seed-0 state and batch. First four in-process
+     train_step calls in the driver (the reference losses). (a)
+     DataParallelTrainer, ScalingConfig(num_workers=1, use_gpu=True),
+     FailureConfig(max_failures=1): the worker trains steps 1-4, saves
+     through the checkpoint plane (train.save_pytree_async of the
+     parameters, AdamW's tensors and the step; its param_groups and the
+     step count in the manifest's meta) after steps 2 and 4, and on its
+     first attempt raises after step 3; the restarted gang restores the
+     step-2 checkpoint and runs steps 3-4. Gates: the losses of steps 1-4
+     bitwise equal the driver's, step 3's loss after the restore bitwise
+     equals it before, every restored leaf's sha256 equals the saved
+     leaf's, K1 24 / K3 12 / K2 12 per step counted in the worker. (b)
+     ScalingConfig(num_workers=2, use_gpu=True, resources_per_worker
+     {"GPU": 0.5}): rank r takes rows 8r..8r+7; each step the loss and its
+     backward on its half, train.grad_sync().allreduce of the gradients
+     (mean, fp32, 4 MiB buckets) copied into each .grad, AdamW; 3 steps.
+     Gates: each step's mean of the two ranks' losses within 2e-3 of (a)'s,
+     both ranks' parameters bitwise equal after step 3 (sha256 per leaf),
+     K1 24 / K3 12 / K2 12 per step in each rank, torch.distributed at world
+     size 2 in each rank. (c) an in-process LLMServer (phase 6's model and
+     engine config, weights_channel "train-250M", seed weights); (a)'s
+     step-4 checkpoint published on that channel. Gates: weights_version()
+     is its id within 30 s; greedy tokens of phase 6's first 8 prompts (64
+     new tokens) equal those of an LLMEngine built from the manifest through
+     ckpt.restore_tree; K1 and K4 launched after the swap. Printed: step
+     times, the save's time on the step path and to commit, bytes written,
+     restore GB/s, peak memory per worker, (b)'s grad-sync share of the step
+     and ring GB/s, publish -> swap latency. The storage is removed at exit.
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
      {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"data": ...}, {"train": ...},
-     {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"kernels": [...]}
+     {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"train_plane": ...},
+     {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
      registers and spills per instance, null where this run did not
@@ -3038,6 +3069,405 @@ def phase_big_train(dev, card, name, profile_dir=None):
 
 # Device time by kind in a profile: (kind, substrings of the device
 # kernel's name); the first match wins, the rest is "other".
+TRAIN_PLANE_STEPS = 4  # (a): steps 1-4, saves after 2 and 4, one raise after 3 on the first attempt
+TRAIN_PLANE_SAVES = (2, 4)
+TRAIN_PLANE_FAIL_AT = 3
+TRAIN_PLANE_SYNC_STEPS = 3  # (b)
+TRAIN_PLANE_LOSS_TOL = 2e-3  # (b)'s mean loss of two halves against (a)'s whole-batch loss
+TRAIN_PLANE_CHANNEL = "train-250M"
+TRAIN_PLANE_SERVE_N = 8  # (c): phase 6's first prompts
+TRAIN_PLANE_SWAP_S = 30.0
+
+
+def _leaf_sha(leaf) -> str:
+    """sha256 of a leaf's bytes (a CUDA tensor is copied to the host)."""
+    import hashlib
+
+    from ray_tpu_torch.util import dtypes
+
+    return hashlib.sha256(dtypes.byte_view(dtypes.host_array(leaf))).hexdigest()
+
+
+def _plane_setup(dev):
+    """Phase 7(d)'s configuration, seed-0 state and seeded batch, drawn the
+    same way in every process that calls it."""
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, make_train_step
+
+    cfg = TransformerConfig(**MODEL, remat=True, remat_policy="dots")
+    init_state, train_step = make_train_step(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(g, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), generator=g, device=dev)}
+    return cfg, state, train_step, batch
+
+
+def _plane_tree(state):
+    """(tree, meta) of a train state for the checkpoint plane. The tree has
+    the parameters at its top level (a server's set_params reads it as it
+    is), the optimizer's tensors under "opt" (per parameter, in leaves()
+    order) and the step; meta has the optimizer's non-tensor entries (its
+    param_groups) and the step count, for the manifest's meta."""
+    import torch
+
+    sd = state["opt"].state_dict()
+    opt = {str(i): {k: v for k, v in st.items() if torch.is_tensor(v)} for i, st in sd["state"].items()}
+    other = {str(i): {k: v for k, v in st.items() if not torch.is_tensor(v)} for i, st in sd["state"].items()}
+    meta = {"param_groups": json.loads(json.dumps(sd["param_groups"])), "opt_other": other,
+            "train_step": int(state["step"])}
+    return {**state["params"], "opt": opt, "step": np.int64(state["step"])}, meta
+
+
+def _plane_restore(state, checkpoint):
+    """Loads the checkpoint-plane manifest a train Checkpoint names into
+    ``state`` (parameters by path, the optimizer through load_state_dict).
+    Returns (seconds, bytes, {path: sha256 of the restored leaf})."""
+    import torch
+
+    from ray_tpu_torch import ckpt
+    from ray_tpu_torch.ckpt.saver import _flatten
+
+    ref = json.load(open(os.path.join(checkpoint.path, "manifest_ref.json")))
+    t0 = time.perf_counter()
+    m = ckpt.load_manifest(ref["storage"], ref["ckpt_id"])
+    tree = ckpt.restore_tree(m, ckpt.ChunkStore(ref["storage"]))
+    flat = _flatten(tree)
+    with torch.no_grad():
+        for path, t in _flatten(state["params"]).items():
+            t.copy_(torch.from_numpy(np.asarray(flat[path])))
+    groups = m["meta"]["param_groups"]
+    for gr in groups:
+        gr["betas"] = tuple(gr["betas"])
+    opt_state = {}
+    for i, entry in enumerate(tree["opt"]):
+        opt_state[i] = {k: torch.from_numpy(np.asarray(v)) for k, v in entry.items()}
+        opt_state[i].update(m["meta"]["opt_other"].get(str(i), {}))
+    state["opt"].load_state_dict({"state": opt_state, "param_groups": groups})
+    state["step"] = int(m["meta"]["train_step"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nbytes = sum(np.asarray(a).nbytes for a in flat.values())
+    return seconds, nbytes, {p: _leaf_sha(a) for p, a in flat.items()}
+
+
+def _counts():
+    from ray_tpu_torch.ops import attention
+
+    return [attention.LAUNCHES, attention.BWD_DQ_LAUNCHES, attention.BWD_DKV_LAUNCHES]
+
+
+def _zero_counts():
+    from ray_tpu_torch.ops import attention
+
+    attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+
+
+def _train_plane_fn(config):
+    """7g(a)'s train fn, one GPU worker: the seed-0 state (or the checkpoint
+    the controller hands a restarted gang), steps to TRAIN_PLANE_STEPS, a
+    checkpoint-plane save after each of TRAIN_PLANE_SAVES, and on the first
+    attempt a raise after step TRAIN_PLANE_FAIL_AT. Reports every step's
+    loss and K1 / K3 / K2 launches (counted in this process), the saved and
+    the restored leaves' digests, the saves' times and the peak memory."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ckpt.saver import _flatten
+
+    dev = torch.device("cuda", 0)
+    cfg, state, train_step, batch = _plane_setup(dev)
+    checkpoint = train.get_checkpoint()
+    attempt = 1 if checkpoint is None else 2
+    if checkpoint is not None:
+        seconds, nbytes, shas = _plane_restore(state, checkpoint)
+        train.report({"kind": "restored", "attempt": attempt, "step": state["step"], "seconds": seconds,
+                      "bytes": nbytes, "sha": shas})
+    torch.cuda.reset_peak_memory_stats()
+    futs = []
+    while state["step"] < TRAIN_PLANE_STEPS:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(state, batch)
+        loss = out["loss"].item()
+        step_s = time.perf_counter() - t0
+        metrics = {"kind": "step", "attempt": attempt, "step": out["step"], "loss": loss,
+                   "launches": _counts(), "step_s": step_s}
+        if out["step"] in TRAIN_PLANE_SAVES:
+            tree, meta = _plane_tree(state)
+            done = []
+            t0 = time.perf_counter()
+            fut = train.save_pytree_async(tree, {**metrics, **meta})
+            stall_s = time.perf_counter() - t0
+            fut.add_done_callback(lambda f, d=done: d.append(time.perf_counter()))
+            futs.append((out["step"], fut, t0, stall_s, done))
+            if attempt == 1:
+                # The snapshot holds these values; step 3 has not run yet.
+                train.report({"kind": "saved", "step": out["step"],
+                              "sha": {p: _leaf_sha(a) for p, a in _flatten(tree).items()}})
+        else:
+            train.report(metrics)
+        if attempt == 1 and out["step"] == TRAIN_PLANE_FAIL_AT:
+            _report_saves(train, futs)
+            raise RuntimeError(f"injected failure after step {TRAIN_PLANE_FAIL_AT} (first attempt)")
+    _report_saves(train, futs)
+    train.report({"kind": "end", "attempt": attempt, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def _report_saves(train, futs):
+    """Waits for each save's commit; reports its step-path stall, its time
+    to commit and the bytes it wrote."""
+    for step, fut, t0, stall_s, done in futs:
+        m = fut.result(timeout=600)
+        train.report({"kind": "save", "step": step, "stall_s": stall_s, "commit_s": done[0] - t0,
+                      "bytes": m["bytes_total"], "ckpt_id": m["ckpt_id"]})
+    futs.clear()
+
+
+def _train_plane_sync_fn(config):
+    """7g(b)'s train fn: rank r of 2 takes rows [8r, 8r + 8) of the batch;
+    each step the loss and its backward on the half, train.grad_sync()'s
+    allreduce (mean, fp32, buckets of Config.collective_bucket_bytes) into
+    each .grad, then AdamW. Rank 0 reports every rank's loss, launches,
+    torch.distributed world size and times, gathered over the ring."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.transformer import cross_entropy_loss, leaves
+
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    dev = torch.device("cuda", 0)
+    cfg, state, _, batch = _plane_setup(dev)
+    half = TRAIN_B // world
+    mine = {"tokens": batch["tokens"][rank * half:(rank + 1) * half]}
+    del batch
+    sync = train.grad_sync()
+    ps, opt = leaves(state["params"]), state["opt"]
+    nbytes = sum(t.numel() * t.element_size() for t in ps)
+    dist_world = dist.get_world_size() if dist.is_initialized() else 0
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(1, TRAIN_PLANE_SYNC_STEPS + 1):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(state["params"], mine, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = sync.allreduce([t.grad for t in ps])
+        with torch.no_grad():
+            for t, g in zip(ps, grads):
+                t.grad.copy_(g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        mine_stats = np.array([loss.item(), *_counts(), dist_world, t3 - t0, t2 - t1], np.float64)
+        every = col.allgather(mine_stats, group_name=sync.group_name)
+        train.report({"kind": "sync_step", "step": step, "ranks": [e.tolist() for e in every],
+                      "bytes": nbytes})
+    shas = np.frombuffer(b"".join(bytes.fromhex(_leaf_sha(t)) for t in ps), np.uint8)
+    every_sha = col.allgather(shas, group_name=sync.group_name)
+    peaks = col.allgather(np.array([torch.cuda.max_memory_allocated() / 1e9]), group_name=sync.group_name)
+    train.report({"kind": "sync_end", "params_equal": all(np.array_equal(every_sha[0], e) for e in every_sha),
+                  "peak_mem_gb": [float(p[0]) for p in peaks], "n_leaves": len(ps)})
+
+
+def _plane_history(result, kind):
+    return [m for m in result.metrics_history if m.get("kind") == kind]
+
+
+def phase_train_plane(dev, card, phase6):
+    """Phase 7g (train-plane-250M): the train plane on the port's runtime
+    (rt.init GPU 1). (a) DataParallelTrainer, one GPU worker, phase 7(d)'s
+    configuration: 4 steps, checkpoint-plane saves after 2 and 4, a raise
+    after 3 on the first attempt and the gang restart from the step-2
+    checkpoint; (b) two ranks on half the batch each (GPU 0.5), gradients
+    averaged over the port's host ring; (c) the step-4 checkpoint published
+    on a channel that an in-process LLMServer hot-swaps, then decodes phase
+    6's first prompts through K1 and K4. Returns (stats, the workers' K1 /
+    K3 / K2 launches, (c)'s K1 / K4 launches)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import ckpt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, LLMServer
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.ops import attention, paged_attention
+    from ray_tpu_torch.train import DataParallelTrainer, FailureConfig, RunConfig, ScalingConfig
+
+    want = {"flash_fwd": 2 * MODEL["n_layers"], "flash_bwd_dq": MODEL["n_layers"],
+            "flash_bwd_dkv": MODEL["n_layers"]}
+    want_l = [want["flash_fwd"], want["flash_bwd_dq"], want["flash_bwd_dkv"]]
+    # The in-process reference: four train_step calls on the same seed and batch.
+    _zero_counts()
+    cfg, state, train_step, batch = _plane_setup(dev)
+    ref_losses = [train_step(state, batch)["loss"].item() for _ in range(TRAIN_PLANE_STEPS)]
+    driver_launches = _counts()
+    del state, batch
+    torch.cuda.empty_cache()
+    log(f"train plane: in-process reference losses {ref_losses}, driver launches K1/K3/K2 {driver_launches}")
+    if driver_launches != [n * TRAIN_PLANE_STEPS for n in want_l]:
+        raise AssertionError(f"reference steps launched {driver_launches}, expected {want_l} per step")
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_plane_")
+    stats = {"card": card}
+    t_init = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS, resources={"GPU": 1}, object_store_memory=RT_STORE_BYTES)
+    try:
+        log(f"train plane: rt.init {time.perf_counter() - t_init:.2f} s, resources {rt.cluster_resources()}")
+        # (a) one worker, two saves, one gang restart.
+        t0 = time.perf_counter()
+        res = DataParallelTrainer(
+            _train_plane_fn,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="plane-a", storage_path=storage,
+                                 failure_config=FailureConfig(max_failures=1))).fit()
+        fit_a = time.perf_counter() - t0
+        if res.error is not None:
+            raise AssertionError(f"7g(a) failed: {res.error}")
+        steps = _plane_history(res, "step")
+        first = {m["step"]: m for m in steps if m["attempt"] == 1}
+        second = {m["step"]: m for m in steps if m["attempt"] == 2}
+        losses = [first[s]["loss"] for s in (1, 2)] + [second[s]["loss"] for s in (3, 4)]
+        log(f"train plane (a): fit {fit_a:.2f} s; losses attempt 1 {[first[s]['loss'] for s in sorted(first)]}, "
+            f"attempt 2 {[second[s]['loss'] for s in sorted(second)]}")
+        if sorted(first) != [1, 2, 3] or sorted(second) != [3, 4]:
+            raise AssertionError(f"7g(a) steps: attempt 1 {sorted(first)}, attempt 2 {sorted(second)}")
+        if losses != ref_losses:
+            raise AssertionError(f"7g(a) losses {losses} are not bitwise the in-process steps' {ref_losses}")
+        if second[3]["loss"] != first[3]["loss"]:
+            raise AssertionError(f"step 3 after the restore {second[3]['loss']} != before {first[3]['loss']}")
+        bad = {(m["attempt"], m["step"]): m["launches"] for m in steps if m["launches"] != want_l}
+        if bad:
+            raise AssertionError(f"7g(a) worker launches per step {bad}, expected K1/K3/K2 {want_l}")
+        saved = _plane_history(res, "saved")
+        restored = _plane_history(res, "restored")
+        if len(saved) != 1 or len(restored) != 1 or saved[0]["step"] != 2 or restored[0]["step"] != 2:
+            raise AssertionError(f"7g(a): saved {[m['step'] for m in saved]}, restored {[m['step'] for m in restored]}")
+        if saved[0]["sha"] != restored[0]["sha"]:
+            diff = sorted(p for p in saved[0]["sha"] if saved[0]["sha"][p] != restored[0]["sha"].get(p))
+            raise AssertionError(f"7g(a): restored leaves differ from the saved ones: {diff}")
+        saves = {m["step"]: m for m in _plane_history(res, "save")}
+        ends = _plane_history(res, "end")
+        restore = restored[0]
+        a_launches = [sum(m["launches"][i] for m in steps) for i in range(3)]
+        stats["a"] = dict(
+            losses=losses, fit_s=fit_a, step_s=[m["step_s"] for m in steps],
+            save_stall_s={s: m["stall_s"] for s, m in saves.items()},
+            save_commit_s={s: m["commit_s"] for s, m in saves.items()},
+            save_bytes={s: m["bytes"] for s, m in saves.items()},
+            restore_s=restore["seconds"], restore_bytes=restore["bytes"],
+            restore_gb_s=restore["bytes"] / restore["seconds"] / 1e9,
+            peak_mem_gb=[m["peak_mem_gb"] for m in ends], leaves_checked=len(saved[0]["sha"]),
+            launches=a_launches)
+        log(f"train plane (a): step s {[round(x, 4) for x in stats['a']['step_s']]}, save on the step path "
+            f"{stats['a']['save_stall_s']} s, to commit {stats['a']['save_commit_s']} s, bytes written "
+            f"{stats['a']['save_bytes']}, restore {restore['bytes'] / 1e9:.3f} GB in {restore['seconds']:.3f} s "
+            f"({stats['a']['restore_gb_s']:.3f} GB/s), {len(saved[0]['sha'])} leaves bitwise, peak mem "
+            f"{stats['a']['peak_mem_gb']} GB, worker launches K1/K3/K2 {a_launches}  [{card}]")
+        manifest_ref = json.load(open(os.path.join(res.checkpoint.path, "manifest_ref.json")))
+        if manifest_ref["ckpt_id"] != saves[4]["ckpt_id"]:
+            raise AssertionError(f"7g(a) latest checkpoint {manifest_ref} is not the step-4 save")
+
+        # (b) two ranks on one card, gradients averaged over the host ring.
+        t0 = time.perf_counter()
+        res_b = DataParallelTrainer(
+            _train_plane_sync_fn,
+            scaling_config=ScalingConfig(num_workers=2, use_gpu=True, resources_per_worker={"GPU": 0.5}),
+            run_config=RunConfig(name="plane-b", storage_path=storage)).fit()
+        fit_b = time.perf_counter() - t0
+        if res_b.error is not None:
+            raise AssertionError(f"7g(b) failed: {res_b.error}")
+        sync_steps = _plane_history(res_b, "sync_step")
+        end_b = _plane_history(res_b, "sync_end")
+        if [m["step"] for m in sync_steps] != list(range(1, TRAIN_PLANE_SYNC_STEPS + 1)) or len(end_b) != 1:
+            raise AssertionError(f"7g(b) reports {[m.get('kind') for m in res_b.metrics_history]}")
+        gaps, b_launches, step_s, sync_s = [], [0, 0, 0], [], []
+        for m in sync_steps:
+            ranks = m["ranks"]
+            mean = sum(r[0] for r in ranks) / len(ranks)
+            gaps.append(abs(mean - ref_losses[m["step"] - 1]))
+            for r in ranks:
+                if [int(x) for x in r[1:4]] != want_l:
+                    raise AssertionError(f"7g(b) step {m['step']} launches {r[1:4]}, expected {want_l}")
+                if int(r[4]) != 2:
+                    raise AssertionError(f"7g(b): torch.distributed world size {r[4]} in a rank, expected 2")
+                b_launches = [b + int(x) for b, x in zip(b_launches, r[1:4])]
+            step_s.append(max(r[5] for r in ranks))
+            sync_s.append(max(r[6] for r in ranks))
+        grad_bytes = sync_steps[0]["bytes"]
+        stats["b"] = dict(mean_losses=[sum(r[0] for r in m["ranks"]) / len(m["ranks"]) for m in sync_steps],
+                          max_gap=max(gaps), fit_s=fit_b, step_s=step_s, sync_s=sync_s,
+                          sync_share=[y / x for x, y in zip(step_s, sync_s)], grad_bytes=grad_bytes,
+                          ring_gb_s=[grad_bytes / y / 1e9 for y in sync_s], peak_mem_gb=end_b[0]["peak_mem_gb"],
+                          params_equal=end_b[0]["params_equal"], launches=b_launches)
+        log(f"train plane (b): fit {fit_b:.2f} s, mean losses {stats['b']['mean_losses']}, largest gap to (a) "
+            f"{stats['b']['max_gap']:.3e} (limit {TRAIN_PLANE_LOSS_TOL}), step s {[round(x, 4) for x in step_s]}, "
+            f"grad sync s {[round(x, 4) for x in sync_s]} (share {[round(x, 3) for x in stats['b']['sync_share']]}), "
+            f"{grad_bytes / 1e9:.3f} GB reduced per step, ring {[round(x, 3) for x in stats['b']['ring_gb_s']]} GB/s, "
+            f"peak mem per rank {stats['b']['peak_mem_gb']} GB, launches K1/K3/K2 {b_launches}  [{card}]")
+        if not max(gaps) <= TRAIN_PLANE_LOSS_TOL:
+            raise AssertionError(f"7g(b) mean losses {gaps} away from (a)'s, limit {TRAIN_PLANE_LOSS_TOL}")
+        if not end_b[0]["params_equal"]:
+            raise AssertionError("7g(b): the two ranks' parameters differ after the last step")
+
+        # (c) train -> serve: the step-4 checkpoint hot-swapped into a server.
+        engine_kw = dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0)
+        srv = LLMServer(MODEL, engine_kw, weights_channel=TRAIN_PLANE_CHANNEL)
+        try:
+            m4 = ckpt.load_manifest(manifest_ref["storage"], manifest_ref["ckpt_id"])
+            t_pub = time.perf_counter()
+            if not ckpt.publish_checkpoint(m4, TRAIN_PLANE_CHANNEL):
+                raise AssertionError("7g(c): publish_checkpoint found no session")
+            while srv.weights_version() != m4["ckpt_id"]:
+                if time.perf_counter() - t_pub > TRAIN_PLANE_SWAP_S:
+                    raise AssertionError(f"7g(c): the server did not swap to {m4['ckpt_id']} within "
+                                         f"{TRAIN_PLANE_SWAP_S} s (at {srv.weights_version()})")
+                time.sleep(0.01)
+            swap_s = time.perf_counter() - t_pub
+            prompts = phase6[0][:TRAIN_PLANE_SERVE_N]
+            attention.LAUNCHES = paged_attention.LAUNCHES = 0
+            got = [list(srv.generate(p, max_tokens=MAX_TOKENS)["tokens"]) for p in prompts]
+            c_launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+        finally:
+            srv.__raytpu_exit__()
+        del srv
+        tree = ckpt.restore_tree(m4, ckpt.ChunkStore(manifest_ref["storage"]))
+        params = {k: (torch.from_numpy(v) if k != "layers" else {n: torch.from_numpy(t) for n, t in v.items()})
+                  for k, v in tree.items() if k in ("embed", "layers", "final_norm", "lm_head")}
+        eng = LLMEngine(TransformerConfig(**MODEL), params=params, engine_config=EngineConfig(**engine_kw))
+        want_tokens = [list(eng.generate(p, max_tokens=MAX_TOKENS)["tokens"]) for p in prompts]
+        del eng, tree, params
+        torch.cuda.empty_cache()
+        stats["c"] = dict(swap_s=swap_s, requests=len(prompts), launches=c_launches,
+                          tokens_equal=got == want_tokens)
+        log(f"train plane (c): publish -> swap {swap_s:.3f} s, {len(prompts)} x {MAX_TOKENS} greedy tokens "
+            f"{'equal' if got == want_tokens else 'DIFFER from'} the restored manifest's engine, launches after "
+            f"the swap K1 {c_launches['flash_fwd']} K4 {c_launches['paged_decode']}  [{card}]")
+        if got != want_tokens:
+            bad = [i for i, (a, b) in enumerate(zip(got, want_tokens)) if a != b]
+            raise AssertionError(f"7g(c): the hot-swapped server's tokens differ for prompts {bad}")
+        if not (c_launches["flash_fwd"] > 0 and c_launches["paged_decode"] > 0):
+            raise AssertionError(f"7g(c): a kernel was not launched after the swap: {c_launches}")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    w_launches = {k: a + b for k, a, b in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                             stats["a"]["launches"], stats["b"]["launches"])}
+    stats["total_s"] = time.perf_counter() - t_init
+    return stats, w_launches, c_launches
+
+
 KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -3206,13 +3636,16 @@ def _run(args, dev, rng):
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
+    plane, tp_launches, tps_launches = phase_train_plane(dev, card, phase6)
     # Launches by path: serve, serve_prefix, serve_openai, serve_runtime,
-    # serve_app, dag, data_batch, data_ingest and train are the 250M cells
+    # serve_app, dag, data_batch, data_ingest, train, train_plane (K1-K3 in
+    # the train workers' processes) and train_plane_serve are the 250M cells
     # (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
              "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "data_batch": db_launches,
-             "data_ingest": di_launches, "train": t_launches,
+             "data_ingest": di_launches, "train": t_launches, "train_plane": tp_launches,
+             "train_plane_serve": tps_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -3253,6 +3686,7 @@ def _run(args, dev, rng):
     log(json.dumps({"train": train}))
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))
+    log(json.dumps({"train_plane": plane}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -530,15 +530,6 @@ class _StreamShipper:
                 return
 
 
-
-def _deferred_verb(verb: str, item: str):
-    """The collective-ring and elastic-fetch verbs of the reference's worker
-    need packages the port does not have yet: the ring is ROADMAP Queue 1
-    item 3a (``collective/``), ``elastic_fetch`` item 3b (``elastic/``)."""
-    raise NotImplementedError(
-        f"worker verb {verb!r} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
-
 class CoreWorker:
     def __init__(self, mode: str, controller_addr: str, config: Config | None = None):
         self.mode = mode  # "driver" | "worker"
@@ -2707,24 +2698,41 @@ class CoreWorker:
 
         return dag_result(self, p)
 
-    # -- the collective ring and the elastic train plane: the packages
-    # behind these verbs (collective, elastic) are not ported yet, so each
-    # verb answers with a typed error naming the ROADMAP item, never a
-    # silent no-op (see _deferred_verb).
+    # -- collective ring transport (ray_tpu_torch/collective/ring.py) ----------
+    # The ring's control plane rides the worker RPC server: a neighbor's
+    # hello pins which inbound Connection carries its raw frames; ready/
+    # meta/abort notifies key per-op events. Raw tensor frames themselves
+    # never reach a handler — they land in expect_raw buffers.
+
     def handle_collective_ring_hello(self, conn, p):
-        _deferred_verb("collective_ring_hello", "3a")
+        from ray_tpu_torch.collective import ring as _colring
+
+        return _colring._on_hello(conn, p)
 
     def handle_collective_ring_ready(self, conn, p):
-        _deferred_verb("collective_ring_ready", "3a")
+        from ray_tpu_torch.collective import ring as _colring
+
+        _colring._on_ready(p)
 
     def handle_collective_ring_meta(self, conn, p):
-        _deferred_verb("collective_ring_meta", "3a")
+        from ray_tpu_torch.collective import ring as _colring
+
+        _colring._on_meta(p)
 
     def handle_collective_ring_abort(self, conn, p):
-        _deferred_verb("collective_ring_abort", "3a")
+        from ray_tpu_torch.collective import ring as _colring
+
+        return _colring._on_abort(p)
+
+    # -- elastic train plane (ray_tpu_torch/elastic/transfer.py) ---------------
+    # Live-reshard byte runs ride the same raw lane as object pulls: this
+    # handler only slices parked export views and send_raw's them — the
+    # payload is never pickled and the reply carries only counters.
 
     async def handle_elastic_fetch(self, conn, p):
-        _deferred_verb("elastic_fetch", "3b")
+        from ray_tpu_torch.elastic import transfer as _elastic
+
+        return await _elastic.fetch(self, conn, p)
 
     def handle_shutdown(self, conn, p):
         self._shutdown = True

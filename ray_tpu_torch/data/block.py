@@ -14,11 +14,12 @@ device array there.
 """
 from __future__ import annotations
 
-import sys
 from typing import Any, Iterable, Optional
 
 import numpy as np
 import pyarrow as pa
+
+from ray_tpu_torch.util.dtypes import is_tensor as _is_tensor
 
 Block = pa.Table
 
@@ -62,16 +63,6 @@ def block_from_batch(batch: Any) -> Block:
     if isinstance(batch, list):
         return block_from_rows(batch)
     raise TypeError(f"unsupported batch type {type(batch)}")
-
-
-def _is_tensor(x) -> bool:
-    """A torch.Tensor, checked without importing torch (a process that never
-    imported it holds none)."""
-    if "torch" not in sys.modules:
-        return False
-    import torch
-
-    return isinstance(x, torch.Tensor)
 
 
 def _tensor_column(t) -> np.ndarray:

@@ -15,9 +15,10 @@ warmup does in the caller's thread: no thread sets a stream of its own.
 ``build_llm_app`` makes a serve application of it: each replica is an
 actor that builds its own engine, and ``params`` may be an ``ObjectRef`` to
 one tree in the object store that every replica fetches in its own process
-(``torch.Tensor`` leaves move out of band). Not ported yet:
-``weights_channel`` (checkpoint publication), which needs the checkpoint
-plane (``ray_tpu_torch/ckpt/``; ``ROADMAP.md``, Queue 1 item 3).
+(``torch.Tensor`` leaves move out of band). ``weights_channel`` subscribes
+each replica to a checkpoint channel (``ray_tpu_torch.ckpt``): a manifest
+published there is fetched and digest-verified off the engine's step lock,
+then swapped in between two engine steps.
 """
 from __future__ import annotations
 
@@ -30,6 +31,19 @@ from typing import Optional
 from ray_tpu_torch.qos import context as _qos
 from ray_tpu_torch.util import metrics as _metrics
 from ray_tpu_torch.util import tracing as _tracing
+
+
+def _tensor_tree(tree):
+    """The tree with its numpy leaves as CPU torch tensors (no copy)."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        import torch
+
+        return torch.from_numpy(tree)
+    return tree
 
 
 def _coerce_sampling(sampling):
@@ -59,10 +73,6 @@ class LLMServer:
         from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine
         from ray_tpu_torch.models.transformer import TransformerConfig
 
-        if weights_channel:
-            raise NotImplementedError(
-                "weights_channel (checkpoint publication) needs the checkpoint plane, "
-                "ray_tpu_torch/ckpt/ (ROADMAP.md, Queue 1 item 3); push weights with apply_weights")
         # train->serve weight handoff: `params` may be an ObjectRef to a
         # param tree in the object store; each replica fetches it here, in
         # its own process (a CUDA tensor lands on this process's current
@@ -99,20 +109,35 @@ class LLMServer:
         self._counter = 0
         self._stop = False
         # Weight swap gate: step() and set_params() exclude each other, so a
-        # swap lands between engine iterations.
+        # swap lands between engine iterations — in-flight batches finish on
+        # the old weights, no request ever reads a mixed tree.
         self._swap_lock = threading.Lock()
+        self._weights_sub = None
+        if weights_channel:
+            # ckpt publication plane: subscribe this replica to the named
+            # checkpoint channel; committed manifests hot-swap in place
+            # (fetch + digest-verify happen OFF the swap lock).
+            from ray_tpu_torch.ckpt import WeightSubscriber
+
+            self._weights_sub = WeightSubscriber(weights_channel, self._swap_weights)
         self._thread = threading.Thread(target=self._loop, name="llm-engine", daemon=True)
         self._thread.start()
 
-    def apply_weights(self, tree) -> bool:
-        """Push-style weight refresh: lands between two engine steps, so
-        in-flight batches finish their step on the old weights."""
+    def _swap_weights(self, tree, summary):
+        tree = _tensor_tree(tree)  # a restored manifest's leaves are numpy
         with self._swap_lock:
             self.engine.set_params(tree)
+
+    def apply_weights(self, tree) -> bool:
+        """Push-style weight refresh (tests / manual rollout): same gate as
+        the subscription path — lands between two engine steps, so in-flight
+        batches finish their step on the old weights."""
+        self._swap_weights(tree, None)
         return True
 
     def weights_version(self) -> Optional[str]:
-        return None  # no checkpoint subscription (weights_channel) yet
+        sub = self._weights_sub
+        return sub.current_version if sub is not None else None
 
     def _loop(self):
         # A step that raises ends this thread (check_health turns false)
@@ -308,6 +333,8 @@ class LLMServer:
         """Stops the stepping thread and waits for it (a step in flight
         finishes first)."""
         self._stop = True
+        if self._weights_sub is not None:
+            self._weights_sub.stop()
         with self._cond:
             self._cond.notify_all()
         self._thread.join(timeout=60.0)
@@ -323,8 +350,9 @@ def build_llm_app(model_config: dict, engine_config: Optional[dict] = None,
     defaults to the engine's slot count (router admission == engine capacity).
     params: trained weights, a param tree or an ObjectRef to one (the
     train->serve handoff: one put, each replica fetches it).
-    weights_channel: not ported yet (raises in each replica; ROADMAP.md,
-    Queue 1 item 3). autoscaling_config: AutoscalingConfig (or kwargs dict);
+    weights_channel: subscribe every replica to this named checkpoint
+    channel — committed manifests hot-swap weights in place, no restart.
+    autoscaling_config: AutoscalingConfig (or kwargs dict);
     the replica count then floats between min/max, driven by the scale
     plane's demand + QoS signals (ray_tpu_torch/scale/) instead of
     num_replicas. ray_actor_options={"num_gpus": f} gives each replica a

@@ -2,11 +2,8 @@
 suite, ``tests/test_data.py``, case for case: the Dataset API, execution,
 splits and ingest on the port's runtime.
 
-Two cases differ where the reference reaches a part the port replaces or
-lacks. ``test_train_ingest_end_to_end`` hands the streaming split's
-iterators to a gang of two actors, each iterating its shard as a train
-worker does (the port's ``DataParallelTrainer`` waits for ROADMAP Queue 1
-item 3). ``test_prefetch_to_device`` asks for ``device="cpu"`` and requires
+One case differs where the reference reaches a part the port replaces:
+``test_prefetch_to_device`` asks for ``device="cpu"`` and requires
 ``torch.Tensor`` leaves where the reference requires ``jax.Array``.
 """
 import os
@@ -202,29 +199,51 @@ def test_streaming_split_disjoint_and_epochs(shared_ray):
 
 def test_train_ingest_end_to_end(shared_ray, tmp_path):
     """The full path: parquet on disk -> Dataset -> streaming_split across a
-    2-worker gang -> each worker's iter_batches()."""
+    2-worker gang -> get_dataset_shard().iter_batches() in the train fn."""
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.train import DataParallelTrainer, RunConfig, ScalingConfig
+
     d = str(tmp_path / "ingest")
     rd.range(64, parallelism=8).map(
         lambda r: {"id": r["id"], "w": float(r["id"])}
     ).write_parquet(d)
     ds = rd.read_parquet(d)
 
-    @rt.remote
-    class TrainWorker:
-        def run(self, shard):
-            seen = []
-            for batch in shard.iter_batches(batch_size=8):
-                seen.extend(int(x) for x in batch["id"])
-            return seen
+    seen_dir = str(tmp_path / "seen")
+    os.makedirs(seen_dir, exist_ok=True)
 
-    shards = ds.streaming_split(2)
-    gang = [TrainWorker.remote() for _ in shards]
-    per_rank = rt.get([w.run.remote(s) for w, s in zip(gang, shards)], timeout=120)
-    all_ids = [i for ids in per_rank for i in ids]
+    def train_fn(config):
+        import json
+
+        shard = train.get_dataset_shard("train")
+        ctx = train.get_context()
+        seen = []
+        for batch in shard.iter_batches(batch_size=8):
+            seen.extend(int(x) for x in batch["id"])
+        with open(os.path.join(config["seen_dir"],
+                               f"rank{ctx.get_world_rank()}.json"), "w") as f:
+            json.dump(seen, f)
+        train.report({"n": len(seen)})
+
+    trainer = DataParallelTrainer(
+        train_fn,
+        train_loop_config={"seen_dir": seen_dir},
+        scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(name="ingest", storage_path=str(tmp_path / "st")),
+        datasets={"train": ds},
+    )
+    result = trainer.fit()
+    assert result.error is None, result.error
+    import json
+
+    all_ids, per_rank = [], []
+    for fname in sorted(os.listdir(seen_dir)):
+        with open(os.path.join(seen_dir, fname)) as f:
+            ids = json.load(f)
+        per_rank.append(len(ids))
+        all_ids.extend(ids)
     assert sorted(all_ids) == list(range(64))  # exactly-once across the gang
     assert len(per_rank) == 2
-    for w in gang:
-        rt.kill(w)
 
 
 def test_prefetch_to_device(shared_ray):

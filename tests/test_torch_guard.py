@@ -5,7 +5,8 @@ modules (tokenizer, metrics, tracing, qos, the HTTP types) and its runtime
 on the GPU unless told otherwise, and a worker process of a port cluster,
 a serve replica hosting the engine included, loads neither jax nor any
 ray_tpu module, nor does either stage of a compiled DAG, a Data actor
-pool's worker or a streaming split's consumer."""
+pool's worker, a streaming split's consumer or a train worker (the train,
+collective, ckpt and elastic packages imported in the driver too)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -225,5 +226,72 @@ def test_data_pool_and_split_consumer_load_no_jax_and_no_ray_tpu():
     actor load neither jax nor any ray_tpu module."""
     out = subprocess.run([sys.executable, "-c", _DATA_PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+_TRAIN_PROBE = """
+import sys
+import ray_tpu_torch.train, ray_tpu_torch.collective, ray_tpu_torch.ckpt, ray_tpu_torch.elastic
+import ray_tpu_torch.train.grad_sync, ray_tpu_torch.elastic.transfer, ray_tpu_torch.collective.ring
+
+def _bad():
+    import sys
+    return [m for m in sys.modules if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+
+assert not _bad(), _bad()
+import ray_tpu_torch as rt
+from ray_tpu_torch import train
+from ray_tpu_torch.train import DataParallelTrainer, FailureConfig, RunConfig, ScalingConfig
+
+def train_fn():
+    import sys
+    import numpy as np
+    # Every rank's count of bad modules rides the ring (rank 0 reports).
+    gs = train.grad_sync(bucket_bytes=1024, average=False)
+    out = gs.allreduce({"w": np.ones(8, np.float32),
+                        "bad": np.array([len(_bad())], np.int64),
+                        "ok": np.array([int("ray_tpu_torch.train.session" in sys.modules
+                                            and "ray_tpu_torch.collective.ring" in sys.modules)])})
+    train.report({"bad": int(out["bad"][0]), "ok": int(out["ok"][0]),
+                  "sum": float(out["w"].sum())})
+
+def gpu_fn():
+    train.report({"trained": True})
+
+rt.init(num_cpus=3, resources={"GPU": 1})
+try:
+    res = DataParallelTrainer(
+        train_fn, scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(name="guard", storage_path=sys.argv[1])).fit()
+    assert res.error is None, res.error
+    assert res.metrics == {"bad": 0, "ok": 2, "sum": 16.0}, res.metrics
+    # A GPU bundle on a process that sees no CUDA device raises; it never
+    # trains on the CPU in the card's place.
+    res = DataParallelTrainer(
+        gpu_fn, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="guard-gpu", storage_path=sys.argv[1],
+                             failure_config=FailureConfig(max_failures=0))).fit()
+    import torch
+    if torch.cuda.is_available():
+        assert res.error is None, res.error
+    else:
+        assert res.error is not None and "sees no CUDA device" in res.error, res.error
+        assert not res.metrics_history
+    assert not _bad(), _bad()
+finally:
+    rt.shutdown()
+print("clean")
+"""
+
+
+def test_train_workers_load_no_jax_and_no_ray_tpu(tmp_path):
+    """``import ray_tpu_torch.train`` (with .collective, .ckpt, .elastic) in
+    the driver, and two train workers that sync a gradient over the ring,
+    load neither jax nor any ray_tpu module. A worker given a GPU bundle
+    that sees no CUDA device fails the run instead of training on the
+    CPU."""
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "clean"

@@ -22,9 +22,6 @@ REPO_ROOT = os.path.dirname(PKG_DIR)
 DEAD_VERBS = {
     ("Controller", "handle_undrain_node"): "2c (autoscaler.py, __main__.py)",
     ("Controller", "handle_get_autoscaler_state"): "2c (autoscaler.py, scripts.py)",
-    ("Controller", "handle_elastic_resize_epoch"): "3b (elastic/resize.py)",
-    ("Controller", "handle_ckpt_register"): "3b (ckpt/publish.py)",
-    ("Controller", "handle_ckpt_latest"): "3b (ckpt/publish.py)",
     ("Controller", "handle_slo_summary"): "2c (scripts.py, dashboard.py)",
     ("Controller", "handle_list_flight_dumps"): "2c (dashboard.py, chaos/scenarios.py)",
     ("Controller", "handle_kv_keys"): "2c (job/manager.py)",

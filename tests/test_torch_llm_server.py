@@ -504,17 +504,17 @@ def test_servers_run_on_the_gpu_unless_asked(monkeypatch, tok_path):
 
 def test_runtime_only_arguments_raise(weights):
     """What still waits for a later slice raises a typed error naming its
-    ROADMAP item: weights_channel (the checkpoint plane), tensor_parallel > 1
-    in the app builders (the mesh). A params ObjectRef is served since serve
-    came to the port (tests/test_torch_serve_llm.py); batch_generate since
-    Data did (tests/test_torch_data_actor_pool.py): here it only builds its
-    lazy actor-pool stage, with the device among the UDF's arguments."""
+    ROADMAP item: tensor_parallel > 1 in the app builders (the mesh). A
+    params ObjectRef is served since serve came to the port
+    (tests/test_torch_serve_llm.py); batch_generate since Data did
+    (tests/test_torch_data_actor_pool.py): here it only builds its lazy
+    actor-pool stage, with the device among the UDF's arguments;
+    weights_channel since the checkpoint plane did
+    (tests/test_torch_checkpoint_plane.py)."""
     import ray_tpu_torch.data as rd
     from ray_tpu_torch.llm import batch_generate, build_llm_app, build_openai_app
     from ray_tpu_torch.llm.batch import _EngineUDF
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        LLMServer(PORT_MODEL, ENGINE, weights_channel="ckpt", device="cpu")
     stage = batch_generate(rd.from_items([{"prompt": [1, 2, 3]}]), PORT_MODEL, ENGINE,
                            device="cpu")._leaf
     assert stage.kind == "map_batches" and stage.fn is _EngineUDF

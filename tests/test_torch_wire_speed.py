@@ -1,8 +1,9 @@
 """The port's wire-speed contracts (raw object lane): the cases of
-``tests/test_wire_speed.py`` on port clusters, except the two that need the
-train plane (ROADMAP Queue 1 item 3: ``train.session``, ``elastic``), which
-are left out: ``test_keep_live_copy_false_jax_snapshot_survives_next_step``
-and ``test_export_state_copy_false_parks_numpy_reference``.
+``tests/test_wire_speed.py`` on port clusters. Its two copy-elision cases,
+``test_keep_live_copy_false_jax_snapshot_survives_next_step`` and
+``test_export_state_copy_false_parks_numpy_reference``, keep their names
+and pin the port's opposite contract: torch leaves are updated in place, so
+keep_live and export_state copy even with ``copy=False``.
 
 Wire-speed campaign regressions (raw object lane).
 
@@ -19,9 +20,9 @@ The contracts this battery pins:
   silently runs per-chunk — no retries burned, no error surfaced.
 - bytes_out/bytes_in accounting covers the vectored-window serve AND the
   sendfile (spilled, auth-off) serve.
-- keep_live(copy=False)/export_state(copy=False) park REFERENCES: a jax
-  snapshot survives the next (rebinding) step untouched, and a parked
-  numpy leaf shares memory with the caller's array.
+- keep_live(copy=False)/export_state(copy=False) take COPIES in the port:
+  a torch snapshot survives the next (in-place) step untouched, and a
+  parked leaf shares no memory with the caller's.
 - Degraded-network tooling: the in-process token-bucket pacer actually
   throttles the raw lane; the netem-marked test auto-skips with a reason
   where tc/CAP_NET_ADMIN/sch_netem is unavailable.
@@ -350,6 +351,74 @@ def test_corrupt_mac_chaos_replays_identically_under_both_granularities(fresh_cl
 # ---------------------------------------------------------------------------
 # copy elision: keep_live(copy=False) / export_state(copy=False)
 # ---------------------------------------------------------------------------
+
+
+def test_keep_live_copy_false_jax_snapshot_survives_next_step(tmp_path):
+    """The port's counterpart: torch steps update leaves IN PLACE, so
+    keep_live(copy=False) must take a copy (the reference parks references
+    to immutable jax leaves). The snapshot survives the next step's
+    in-place updates, and export_state(copy=False) ships exactly the parked
+    values."""
+    import torch
+
+    from ray_tpu_torch.elastic import transfer
+    from ray_tpu_torch.train.session import TrainSession
+
+    sess = TrainSession(0, 1, 0, "wire-speed", str(tmp_path))
+    params = torch.arange(1024, dtype=torch.float32)
+    opt_m = torch.zeros(2048, dtype=torch.float32)
+    sess.keep_live({"params": params}, sharded={"opt.m": (opt_m, 0, 4096)},
+                   meta={"step": 1}, copy=False)
+    snap = sess.live_snapshot()
+    assert snap["state"]["params"] is not params  # a copy, not a reference
+
+    # The "next step": torch updates the same tensors in place.
+    params.add_(1.0)
+    opt_m.add_(0.5)
+
+    np.testing.assert_array_equal(
+        snap["state"]["params"].numpy(), np.arange(1024, dtype=np.float32))
+    arr, lo, n = snap["sharded"]["opt.m"]
+    assert (lo, n) == (0, 4096) and float(arr.sum()) == 0.0
+
+    tid = "wire-speed-export"
+    transfer.export_state(tid, 0, snap["state"], snap["sharded"],
+                          seq=snap["seq"], meta=snap["meta"], copy=False)
+    try:
+        exp = transfer._EXPORTS[tid]
+        np.testing.assert_array_equal(
+            exp.arrays["params"], np.arange(1024, dtype=np.float32))
+    finally:
+        transfer.release(tid)
+
+
+def test_export_state_copy_false_parks_numpy_reference():
+    """The port's counterpart: export_state parks a private host copy with
+    copy=False too (a torch leaf is updated in place after the snapshot
+    point), so the parked bytes share no memory with the caller's leaf and
+    survive its next in-place update; the default copies as well."""
+    import torch
+
+    from ray_tpu_torch.elastic import transfer
+
+    w = torch.arange(4096, dtype=torch.float32)
+    arr = np.arange(4096, dtype=np.float32)
+    transfer.export_state("wire-ref", 0, {"w": w, "a": arr}, copy=False)
+    try:
+        exp = transfer._EXPORTS["wire-ref"]
+        assert not np.shares_memory(exp.arrays["w"], w.numpy())
+        assert not np.shares_memory(exp.arrays["a"], arr)
+        w.add_(1.0)
+        arr += 1.0
+        np.testing.assert_array_equal(exp.arrays["w"], np.arange(4096, dtype=np.float32))
+        np.testing.assert_array_equal(exp.arrays["a"], np.arange(4096, dtype=np.float32))
+    finally:
+        transfer.release("wire-ref")
+    transfer.export_state("wire-copy", 0, {"w": arr})  # default copies
+    try:
+        assert not np.shares_memory(transfer._EXPORTS["wire-copy"].arrays["w"], arr)
+    finally:
+        transfer.release("wire-copy")
 
 
 # ---------------------------------------------------------------------------
