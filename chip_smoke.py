@@ -310,11 +310,53 @@ Phases, in order; any failure exits non-zero:
      times, the save's time on the step path and to commit, bytes written,
      restore GB/s, peak memory per worker, (b)'s grad-sync share of the step
      and ring GB/s, publish -> swap latency. The storage is removed at exit.
+  7h. tune-sweep-250M: Tune (ray_tpu_torch.tune) on the port's runtime
+     (rt.init GPU 1, the 2 GiB store) at 7g's configuration, seed-0 state
+     and batch, each trial on rows 0-7 (B 8 x S 2048). First the driver's
+     reference: 3 in-process train_step calls at each learning rate of
+     grid_search([1e-4, 3e-4, 1e-3, 3e-3]) (AdamW's lr set before the first
+     step; step 1's loss is the same at every rate). (a) A FIFO sweep of
+     that grid, resources_per_trial {"GPU": 0.5}, max_concurrent_trials 2,
+     each trial reporting its loss after each of 3 steps. Gates: every
+     trial's losses bitwise equal the driver's at its rate;
+     get_best_result("loss", "min") is the driver's best rate; K1 24 / K3
+     12 / K2 12 a step counted in each trial's process; two trials' step
+     windows overlap on the card. (b) The grid under ASHAScheduler(max_t 3,
+     grace 2, reduction factor 2) over the iteration. Gates: a trial was
+     stopped before step 3; every trial's losses are a bitwise prefix of the
+     driver's (the decisions the driver's losses predict for the order in
+     which the trials reached the rung are printed). (c) One trial at 3e-4,
+     max_failures_per_trial 1: its first attempt saves the parameters,
+     AdamW's state and the step after step 2 (train.checkpoint.save_pytree,
+     reported with the step), then raises; the retry restores through
+     tune.get_checkpoint() and runs step 3. Gate: the losses of steps 1-3
+     bitwise equal the driver's. Printed: each trial's start latency (actor
+     requested -> first report), step times and peak memory, each sweep's
+     wall time, the checkpoint's bytes and save and restore times.
+  7i. rl-learners: (a) PPOLearner (CartPole's sizes: obs 4, 2 actions,
+     minibatch 256, lr 2.5e-4), MultiAgentPPO's per-policy PPOLearner
+     (CueMatch: 4 cues, minibatch 512, lr 3e-3), IMPALALearner (a 64 x 8
+     rollout), DQNLearner (batch 64, a target sync after update 2),
+     SACLearner (Pendulum: obs 3, one action, batch 128), BCLearner
+     (discrete, batch 256; continuous, batch 256) and CQLLearner (batch 256,
+     8 action samples), each built from the same seed-0 numpy parameters on
+     the card and on the CPU, 3 updates each on one seeded numpy minibatch,
+     SAC and CQL on the same seeded draws. Gates: per-leaf relative L2 (the
+     parameters, target networks and temperature) <= 1e-4 after the 3
+     updates and each update's losses within 1e-4 relative (fp32, TF32
+     off); the card learner's parameters are CUDA tensors. (b)
+     MultiAgentPPO on CueMatchEnv(n_agents 2, n_cues 4, ep_len 16), 2
+     runners x 8 envs, rollout 64, lr 3e-3, seed 0, its learner on the
+     card, the runners numpy on CPU actors (rt.init). Gate:
+     episode_return_mean > 26 within 12 iterations (max 32). Printed: each
+     iteration's time split into learning (the learner's updates, each
+     synchronized) and sampling with the host work around it, and learner
+     updates/s.
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
      {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"data": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"train_plane": ...},
-     {"kernels": [...]}
+     {"tune": ...}, {"rl": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
      registers and spills per instance, null where this run did not
@@ -3468,6 +3510,528 @@ def phase_train_plane(dev, card, phase6):
     return stats, w_launches, c_launches
 
 
+# Phase 7h (tune-sweep-250M): 7(d)'s configuration in half-card Tune
+# trials, each on rows 0-7 of the seed-0 batch, TUNE_STEPS steps at each
+# learning rate of the grid; (b) ASHA over the iteration (grace 2: step 1's
+# loss is the same at every rate); (c) one trial at TUNE_RESUME_LR that
+# saves after step TUNE_FAIL_AT and raises on its first attempt.
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_STEPS, TUNE_ROWS = 3, 8
+TUNE_ASHA = dict(max_t=3, grace_period=2, reduction_factor=2)
+TUNE_RESUME_LR, TUNE_FAIL_AT = 3e-4, 2
+
+
+def _tune_setup(dev, lr):
+    """7g's seed-0 state and batch (the same draws), AdamW at ``lr``, rows
+    0..TUNE_ROWS-1 of the batch."""
+    cfg, state, train_step, batch = _plane_setup(dev)
+    for group in state["opt"].param_groups:
+        group["lr"] = lr
+    return cfg, state, train_step, {"tokens": batch["tokens"][:TUNE_ROWS].clone()}
+
+
+def _tune_tree(state):
+    """The trial's checkpoint tree: parameters, AdamW's state (its tensors
+    per parameter index, "step" included) and the step."""
+    sd = state["opt"].state_dict()
+    return {"params": state["params"], "opt": {str(i): dict(st) for i, st in sd["state"].items()},
+            "step": np.int64(state["step"])}
+
+
+def _tune_restore(state, checkpoint):
+    """Loads a _tune_tree checkpoint (train.checkpoint.load_pytree) into
+    ``state``: parameters in place, AdamW through load_state_dict."""
+    import torch
+
+    from ray_tpu_torch.ckpt.saver import _flatten
+    from ray_tpu_torch.train.checkpoint import load_pytree
+
+    tree = load_pytree(checkpoint.path)
+    flat = _flatten(tree["params"])
+    with torch.no_grad():
+        for path, t in _flatten(state["params"]).items():
+            t.copy_(flat[path])
+    opt = state["opt"]
+    # The tree's per-parameter entries, keyed "0".."n-1", come back a list.
+    opt.load_state_dict({"state": dict(enumerate(tree["opt"])),
+                         "param_groups": opt.state_dict()["param_groups"]})
+    state["step"] = int(tree["step"])
+
+
+def _tune_trainable(config):
+    """7h's trainable, in a trial actor given {"GPU": 0.5}: TUNE_STEPS
+    steps at config["lr"], one report a step (loss, K1 / K3 / K2 launches
+    counted in this process, the step's window on the host clock, peak
+    memory). With config["fail_at"], the first attempt saves the state
+    after that step (train.checkpoint.save_pytree, reported with the step)
+    and raises; a retry restores it through tune.get_checkpoint()."""
+    t_fn = time.time()  # before `import torch`: setup includes it
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.train.checkpoint import save_pytree
+
+    dev = torch.device("cuda", 0)
+    _, state, train_step, batch = _tune_setup(dev, config["lr"])
+    checkpoint = tune.get_checkpoint()
+    attempt = 1
+    restore_s = None
+    if checkpoint is not None:
+        attempt = 2
+        t0 = time.perf_counter()
+        _tune_restore(state, checkpoint)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    while state["step"] < TUNE_STEPS:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = train_step(state, batch)
+        loss = out["loss"].item()
+        t1 = time.time()
+        metrics = {"loss": loss, "step": out["step"], "attempt": attempt, "launches": _counts(),
+                   "t0": t0, "t1": t1, "t_fn": t_fn, "restore_s": restore_s,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if attempt == 1 and out["step"] == config.get("fail_at"):
+            path = tempfile.mkdtemp(prefix="chip_smoke_tune_ckpt_")
+            t0 = time.perf_counter()
+            save_pytree(_tune_tree(state), path)
+            metrics["save_s"] = time.perf_counter() - t0
+            metrics["ckpt_bytes"] = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            t0 = time.perf_counter()
+            tune.report(metrics, checkpoint=Checkpoint.from_directory(path))
+            metrics["report_s"] = time.perf_counter() - t0
+            shutil.rmtree(path, ignore_errors=True)
+            tune.report({"kind": "saved", "save_s": metrics["save_s"], "report_s": metrics["report_s"],
+                         "ckpt_bytes": metrics["ckpt_bytes"]})
+            raise RuntimeError(f"injected failure after step {TUNE_FAIL_AT} (first attempt)")
+        tune.report(metrics)
+
+
+def _tune_steps(result):
+    return [m for m in result.metrics_history if "loss" in m]
+
+
+def _asha_predict(ref, order):
+    """The decisions ASHAScheduler(**TUNE_ASHA, mode "min") makes when the
+    trials cross its rung (iteration 2) in ``order`` (learning rates), from
+    the driver's losses: {lr: stopped at the rung}."""
+    seen, stopped = [], {}
+    for lr in order:
+        seen.append(ref[lr][TUNE_ASHA["grace_period"] - 1])
+        values = sorted(seen)
+        k = max(1, -(-len(values) // TUNE_ASHA["reduction_factor"]))
+        stopped[lr] = len(values) >= TUNE_ASHA["reduction_factor"] and values[k - 1] < seen[-1]
+    return stopped
+
+
+def phase_tune(dev, card):
+    """Phase 7h (tune-sweep-250M): ray_tpu_torch.tune over the port's
+    runtime (rt.init GPU 1, the 2 GiB store). First the driver's reference,
+    TUNE_STEPS in-process train_step calls at each rate of TUNE_LRS; then
+    (a) a FIFO sweep of grid_search(TUNE_LRS) in {"GPU": 0.5} trials, two
+    at a time, (b) the same grid under ASHA, (c) one trial that fails after
+    a checkpoint and resumes. Returns (stats, the trials' K1 / K3 / K2
+    launches)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.tune import tuner as tuner_mod
+
+    want_l = [2 * MODEL["n_layers"], MODEL["n_layers"], MODEL["n_layers"]]
+    ref = {}
+    for lr in TUNE_LRS:
+        _zero_counts()
+        _, state, train_step, batch = _tune_setup(dev, lr)
+        ref[lr] = [train_step(state, batch)["loss"].item() for _ in range(TUNE_STEPS)]
+        if _counts() != [n * TUNE_STEPS for n in want_l]:
+            raise AssertionError(f"7h reference at lr {lr} launched {_counts()}, expected {want_l} per step")
+        del state, batch
+        torch.cuda.empty_cache()
+    best_lr = min(TUNE_LRS, key=lambda lr: ref[lr][-1])
+    log(f"tune: the driver's losses {ref}, best lr {best_lr}")
+    if len({ref[lr][0] for lr in TUNE_LRS}) != 1:
+        raise AssertionError(f"7h: step 1's loss differs between learning rates: {ref}")
+
+    # Observe (never change) when the controller requests each trial's actor.
+    requested = {}
+    try_start = tuner_mod.TuneController._try_start
+
+    def timed_start(self, trial):
+        t = time.time()
+        ok = try_start(self, trial)
+        if ok:
+            requested.setdefault(trial.trial_id, []).append(t)
+        return ok
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    stats = {"card": card, "ref_losses": {str(lr): v for lr, v in ref.items()}, "best_lr": best_lr}
+    launches = [0, 0, 0]
+    t_init = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS, resources={"GPU": 1}, object_store_memory=RT_STORE_BYTES)
+    tuner_mod.TuneController._try_start = timed_start
+    try:
+        def sweep(name, space, **kw):
+            requested.clear()
+            t0 = time.perf_counter()
+            grid = tune.Tuner(
+                _tune_trainable, param_space=space,
+                tune_config=tune.TuneConfig(metric="loss", mode="min", resources_per_trial={"GPU": 0.5},
+                                            max_concurrent_trials=2, **kw),
+                run_config=RunConfig(name=name, storage_path=storage)).fit()
+            wall = time.perf_counter() - t0
+            if grid.errors:
+                raise AssertionError(f"7h {name}: trial errors {grid.errors}")
+            rows = []
+            for r in grid:
+                steps = _tune_steps(r)
+                for m in steps:
+                    if m["launches"] != want_l:
+                        raise AssertionError(f"7h {name}: lr {r.config['lr']} step {m['step']} launched "
+                                             f"{m['launches']}, expected K1/K3/K2 {want_l}")
+                    for i in range(3):
+                        launches[i] += m["launches"][i]
+                firsts = [next(m for m in steps if m["attempt"] == a) for a in sorted({m["attempt"] for m in steps})]
+                rows.append(dict(lr=r.config["lr"], losses=[m["loss"] for m in steps],
+                                 attempts=[m["attempt"] for m in steps],
+                                 start_s=[m["t1"] - t for t, m in zip(requested[r.trial_id], firsts)],
+                                 spawn_s=[m["t_fn"] - t for t, m in zip(requested[r.trial_id], firsts)],
+                                 setup_s=[m["t0"] - m["t_fn"] for m in firsts],
+                                 step_s=[m["t1"] - m["t0"] for m in steps],
+                                 step_t1=[m["t1"] for m in steps],
+                                 window=(steps[0]["t0"], steps[-1]["t1"]),
+                                 peak_mem_gb=max(m["peak_mem_gb"] for m in steps)))
+            log(f"tune ({name}): {len(grid)} trials in {wall:.2f} s")
+            for row in rows:
+                log(f"  lr {row['lr']}: losses {row['losses']}, start latency (actor requested -> first report) "
+                    f"{[round(x, 3) for x in row['start_s']]} s (to the trainable's start "
+                    f"{[round(x, 3) for x in row['spawn_s']]}, its setup {[round(x, 3) for x in row['setup_s']]}), "
+                    f"step s {[round(x, 4) for x in row['step_s']]}, "
+                    f"peak mem {row['peak_mem_gb']:.2f} GB  [{card}]")
+            return grid, rows, wall
+
+        # (a) FIFO.
+        grid, rows, wall = sweep("tune-fifo", {"lr": tune.grid_search(list(TUNE_LRS))})
+        for row in rows:
+            if row["losses"] != ref[row["lr"]]:
+                raise AssertionError(f"7h(a) lr {row['lr']}: losses {row['losses']} are not bitwise the "
+                                     f"driver's {ref[row['lr']]}")
+        got_best = grid.get_best_result("loss", "min").config["lr"]
+        if got_best != best_lr:
+            raise AssertionError(f"7h(a): get_best_result picked lr {got_best}, the driver's best is {best_lr}")
+        windows = sorted(row["window"] for row in rows)
+        overlap = max(min(a[1], b[1]) - max(a[0], b[0]) for i, a in enumerate(windows) for b in windows[i + 1:])
+        if overlap <= 0:
+            raise AssertionError(f"7h(a): no two trials' step windows overlapped on the card: {windows}")
+        stats["a"] = dict(wall_s=wall, best_lr=got_best, overlap_s=overlap, trials=rows)
+        log(f"tune (a): every trial's losses bitwise the driver's, best lr {got_best}, two trials' step "
+            f"windows overlap {overlap:.3f} s  [{card}]")
+
+        # (b) ASHA.
+        grid, rows, wall = sweep("tune-asha", {"lr": tune.grid_search(list(TUNE_LRS))},
+                                 scheduler=tune.ASHAScheduler(metric="loss", mode="min", **TUNE_ASHA))
+        for row in rows:
+            if row["losses"] != ref[row["lr"]][:len(row["losses"])]:
+                raise AssertionError(f"7h(b) lr {row['lr']}: losses {row['losses']} are not a bitwise prefix "
+                                     f"of the driver's {ref[row['lr']]}")
+        stopped = [row["lr"] for row in rows if len(row["losses"]) < TUNE_STEPS]
+        # The order in which the trials reported the rung's iteration.
+        rung = TUNE_ASHA["grace_period"]
+        crossed = [row["lr"] for row in sorted(rows, key=lambda r: r["step_t1"][rung - 1])]
+        stats["b"] = dict(wall_s=wall, stopped=stopped, trials=rows)
+        log(f"tune (b): stopped before step {TUNE_STEPS}: {stopped}; the driver's losses would stop "
+            f"{[lr for lr, s in _asha_predict(ref, crossed).items() if s]} for rung crossings in the "
+            f"order {crossed}  [{card}]")
+        if not stopped:
+            raise AssertionError(f"7h(b): ASHA stopped no trial before step {TUNE_STEPS}: {rows}")
+
+        # (c) failure and resume.
+        grid, rows, wall = sweep("tune-resume", {"lr": tune.grid_search([TUNE_RESUME_LR]),
+                                                 "fail_at": TUNE_FAIL_AT}, max_failures_per_trial=1)
+        steps = _tune_steps(grid[0])
+        saved = [m for m in grid[0].metrics_history if m.get("kind") == "saved"]
+        got = [(m["attempt"], m["step"]) for m in steps]
+        want = [(1, s) for s in range(1, TUNE_FAIL_AT + 1)] + [(2, s) for s in range(TUNE_FAIL_AT + 1,
+                                                                                     TUNE_STEPS + 1)]
+        if got != want or len(saved) != 1:
+            raise AssertionError(f"7h(c): (attempt, step) reports {got}, expected {want}; saves {saved}")
+        if [m["loss"] for m in steps] != ref[TUNE_RESUME_LR]:
+            raise AssertionError(f"7h(c): losses {[m['loss'] for m in steps]} are not bitwise the driver's "
+                                 f"{ref[TUNE_RESUME_LR]}")
+        resumed = steps[TUNE_FAIL_AT]
+        stats["c"] = dict(wall_s=wall, losses=[m["loss"] for m in steps], ckpt_bytes=saved[0]["ckpt_bytes"],
+                          save_s=saved[0]["save_s"], report_s=saved[0]["report_s"],
+                          restore_s=resumed["restore_s"], trial=rows[0])
+        log(f"tune (c): step {TUNE_FAIL_AT + 1} after the resume {resumed['loss']} bitwise the driver's; "
+            f"checkpoint {saved[0]['ckpt_bytes'] / 1e9:.3f} GB saved in {saved[0]['save_s']:.3f} s "
+            f"(report with it {saved[0]['report_s']:.3f} s), restored in {resumed['restore_s']:.3f} s  [{card}]")
+    finally:
+        tuner_mod.TuneController._try_start = try_start
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    stats["total_s"] = time.perf_counter() - t_init
+    stats["launches"] = launches
+    return stats, dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), launches))
+
+
+# Phase 7i (rl-learners): every RL learner at the sizes of the reference's
+# tests, built from seed-0 numpy parameters, RL_UPDATES updates on one
+# seeded numpy minibatch on the card and on the CPU; then MultiAgentPPO on
+# CueMatchEnv at tests/test_rl_multiagent.py:80-97's configuration.
+RL_UPDATES = 3
+RL_TOL = 1e-4  # per-leaf relative L2 and each update's relative loss, card against CPU (fp32)
+RL_LEARNERS = ("ppo", "multi_agent_ppo", "impala", "dqn", "sac", "bc_discrete", "bc_continuous", "cql")
+RL_MA = dict(num_env_runners=2, num_envs_per_runner=8, rollout_len=64, lr=3e-3, seed=0)
+RL_MA_ENV = dict(n_agents=2, n_cues=4, ep_len=16)
+RL_MA_ITERS, RL_MA_BAR = 12, 26.0  # max 32, random about 1.4
+
+
+def rl_case(name):
+    """One learner's parity case: {"params", "batch", "config", "noise"}
+    (numpy; seed 0). Sizes: CartPole (obs 4, 2 actions; PPO's minibatch 256
+    at lr 2.5e-4, IMPALA's 64 x 8 rollout, DQN's batch 64, BC's 256),
+    CueMatch (4 cues, minibatch 512, lr 3e-3) and Pendulum (obs 3, one
+    action in [-2, 2]; SAC's batch 128, CQL's 256 with 8 action samples).
+    SAC and CQL carry their RL_UPDATES updates' standard-normal (and CQL's
+    uniform) draws under "noise"."""
+    from ray_tpu_torch.rl import dqn, impala, module, offline, sac
+
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    case = {"noise": None}
+    if name in ("ppo", "multi_agent_ppo"):
+        obs_dim, n_act, B = (4, 2, 256) if name == "ppo" else (4, 4, 512)
+        params = module.init_params(rng, obs_dim, n_act, (64, 64))
+        obs = (rng.standard_normal((B, obs_dim)).astype(f32) if name == "ppo"
+               else np.eye(obs_dim, dtype=f32)[rng.integers(0, obs_dim, B)])
+        actions, logp, _ = module.np_sample(params, obs, rng)
+        adv = rng.standard_normal(B).astype(f32)
+        case.update(params=params, config={"lr": 2.5e-4 if name == "ppo" else 3e-3},
+                    batch={"obs": obs, "actions": actions, "logp_old": logp,
+                           "advantages": (adv - adv.mean()) / (adv.std() + 1e-8),
+                           "returns": rng.standard_normal(B).astype(f32)})
+    elif name == "impala":
+        T, N = 64, 8
+        params = module.init_params(rng, 4, 2, (64, 64))
+        obs = rng.standard_normal((T, N, 4)).astype(f32)
+        actions, logp, _ = module.np_sample(params, obs.reshape(T * N, 4), rng)
+        dones = (rng.random((T, N)) < 0.05).astype(f32)
+        case.update(params=params, config=impala.IMPALAConfig(),
+                    batch={"obs": obs, "actions": actions.reshape(T, N),
+                           "behavior_logp": (logp + 0.1 * rng.standard_normal(T * N)).astype(f32).reshape(T, N),
+                           "rewards": np.ones((T, N), f32), "dones": dones,
+                           "terms": dones * (rng.random((T, N)) < 0.5).astype(f32),
+                           "valids": (rng.random((T, N)) > 0.05).astype(f32),
+                           "last_obs": rng.standard_normal((N, 4)).astype(f32)})
+    elif name == "dqn":
+        B = 64
+        case.update(params=module.init_params(rng, 4, 2, (64, 64)),
+                    config=dqn.DQNConfig(target_update_every=2),  # a target sync inside the 3 updates
+                    batch={"obs": rng.standard_normal((B, 4)).astype(f32), "actions": rng.integers(0, 2, B),
+                           "rewards": np.ones(B, f32), "next_obs": rng.standard_normal((B, 4)).astype(f32),
+                           "terms": (rng.random(B) < 0.1).astype(f32),
+                           "weights": rng.uniform(0.2, 1.0, B).astype(f32)})
+    elif name in ("sac", "cql"):
+        B = 128 if name == "sac" else 256
+        cfg = sac.SACConfig() if name == "sac" else offline.CQLConfig()
+        case.update(params=sac.sac_init_params(rng, 3, 1, cfg.hidden), config=cfg,
+                    batch={"obs": rng.standard_normal((B, 3)).astype(f32),
+                           "actions": rng.uniform(-2, 2, (B, 1)).astype(f32),
+                           "rewards": -rng.uniform(0, 16, B).astype(f32),
+                           "next_obs": rng.standard_normal((B, 3)).astype(f32),
+                           "terms": (rng.random(B) < 0.05).astype(f32)})
+        n = getattr(cfg, "n_action_samples", 0)
+        noise = []
+        for _ in range(RL_UPDATES):
+            draw = {"next": rng.standard_normal((B, 1)).astype(f32), "cur": rng.standard_normal((B, 1)).astype(f32)}
+            if name == "cql":
+                draw.update(rand=rng.uniform(-1, 1, (B, n, 1)).astype(f32),
+                            pol=rng.standard_normal((B * n, 1)).astype(f32),
+                            nxt=rng.standard_normal((B * n, 1)).astype(f32))
+            noise.append(draw)
+        case["noise"] = noise
+    elif name == "bc_discrete":
+        full = module.init_params(rng, 4, 2, (64, 64))
+        B = 256
+        case.update(params={k: v for k, v in full.items() if k.startswith(("pw", "pb", "wpi", "bpi"))},
+                    config={"lr": 1e-3, "act_scale": None},
+                    batch={"obs": rng.standard_normal((B, 4)).astype(f32), "actions": rng.integers(0, 2, B)})
+    elif name == "bc_continuous":
+        full = sac.sac_init_params(rng, 3, 1, (64, 64))
+        B = 256
+        case.update(params={k: v for k, v in full.items() if k.startswith(("pw", "pb", "wmu", "bmu"))},
+                    config={"lr": 1e-3, "act_scale": np.array([2.0], f32)},
+                    batch={"obs": rng.standard_normal((B, 3)).astype(f32),
+                           "actions": rng.uniform(-2, 2, (B, 1)).astype(f32)})
+    else:
+        raise ValueError(name)
+    return case
+
+
+def rl_learner(name, case, device):
+    """The port's learner of ``name`` built from the case's parameters."""
+    from ray_tpu_torch.rl.dqn import DQNLearner
+    from ray_tpu_torch.rl.impala import IMPALALearner
+    from ray_tpu_torch.rl.learner import PPOLearner
+    from ray_tpu_torch.rl.offline import BCLearner, CQLLearner
+    from ray_tpu_torch.rl.sac import SACLearner
+
+    p, cfg = case["params"], case["config"]
+    if name in ("ppo", "multi_agent_ppo"):
+        return PPOLearner(p, lr=cfg["lr"], device=device)
+    if name.startswith("bc"):
+        return BCLearner(p, cfg["lr"], cfg["act_scale"], device=device)
+    if name in ("sac", "cql"):
+        return (SACLearner if name == "sac" else CQLLearner)(p, np.array([2.0], np.float32), cfg, device=device)
+    return {"impala": IMPALALearner, "dqn": DQNLearner}[name](p, cfg, device=device)
+
+
+def rl_update(name, learner, case, i):
+    """Update ``i`` of the case on the learner; returns its losses as floats
+    (SAC and CQL take the case's draws through ``_update``)."""
+    import torch
+
+    from ray_tpu_torch.rl.module import batch_tensors
+
+    batch = case["batch"]
+    if name in ("ppo", "multi_agent_ppo"):
+        aux = learner.update_minibatch(batch)
+        return {"loss": float(aux["loss"])}
+    if name == "impala":
+        return {"loss": float(learner.update_batch(batch)["loss"])}
+    if name == "dqn":
+        return {"loss": learner.update_batch(batch)[0]}
+    if name.startswith("bc"):
+        return {"loss": float(learner.update(batch))}
+    noise = {k: torch.as_tensor(v, device=learner.device) for k, v in case["noise"][i].items()}
+    aux = learner._update(batch_tensors(batch, learner.device), noise)
+    keys = ("q_loss", "pi_loss") if name == "sac" else ("bellman_loss", "cql_loss")
+    return {k: float(aux[k]) for k in keys}
+
+
+def rl_leaves(name, learner):
+    """Every tensor the learner updates, as host numpy: the parameters, and
+    the target networks and temperature where it has them."""
+    from ray_tpu_torch.rl.module import to_numpy
+
+    out = dict(learner.get_weights())
+    if name == "dqn":
+        out.update({f"target/{k}": v for k, v in to_numpy(learner.target_params).items()})
+    if name in ("sac", "cql"):
+        out.update({f"target/{k}": v for k, v in to_numpy(learner.target).items()})
+        out["log_alpha"] = learner.log_alpha.detach().cpu().numpy()
+    return out
+
+
+def rl_rel_l2(got, want):
+    """Per-leaf relative L2 of ``got`` against ``want``, the largest."""
+    return max(float(np.linalg.norm(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64))
+                     / max(np.linalg.norm(np.asarray(want[k], np.float64)), 1e-30)) for k in want)
+
+
+def _ma_env():
+    from ray_tpu_torch.rl.multi_agent import CueMatchEnv
+
+    return CueMatchEnv(**RL_MA_ENV)
+
+
+def phase_rl(dev, card):
+    """Phase 7i (rl-learners): (a) each learner of RL_LEARNERS built twice
+    from the same seed-0 parameters, on the card and on the CPU, and
+    RL_UPDATES updates of each on the case's minibatch (SAC and CQL on the
+    same draws); (b) MultiAgentPPO on CueMatchEnv with its learner on the
+    card. Returns stats."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.rl import MultiAgentPPOConfig
+
+    stats = {"card": card, "a": {}}
+    t_start = time.perf_counter()
+    for name in RL_LEARNERS:
+        case = rl_case(name)
+        gpu, cpu = rl_learner(name, case, dev), rl_learner(name, case, "cpu")
+        if not all(t.device == dev for t in gpu.params.values()):
+            raise AssertionError(f"7i(a) {name}: the card learner's parameters are not on {dev}")
+        losses_cpu = [rl_update(name, cpu, case, i) for i in range(RL_UPDATES)]
+        losses_gpu, update_ms = [], []
+        for i in range(RL_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses_gpu.append(rl_update(name, gpu, case, i))
+            update_ms.append(1e3 * (time.perf_counter() - t0))
+        leaf_err = rl_rel_l2(rl_leaves(name, gpu), rl_leaves(name, cpu))
+        loss_err = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+                       for g, c in zip(losses_gpu, losses_cpu) for k in c)
+        stats["a"][name] = dict(leaf_rel_l2=leaf_err, loss_rel=loss_err, losses=losses_gpu, update_ms=update_ms)
+        log(f"rl (a) {name}: per-leaf relative L2 {leaf_err:.3e}, loss {loss_err:.3e} (limit {RL_TOL}); "
+            f"losses {[{k: round(v, 6) for k, v in d.items()} for d in losses_gpu]}; update ms on the card "
+            f"{[round(x, 3) for x in update_ms]}  [{card}]")
+        if not (leaf_err <= RL_TOL and loss_err <= RL_TOL):
+            raise AssertionError(f"7i(a) {name}: card against CPU: leaves {leaf_err:.3e}, losses {loss_err:.3e}, "
+                                 f"limit {RL_TOL}")
+        del gpu, cpu
+
+    t_init = time.perf_counter()
+    rt.init(num_cpus=RT_CPUS, object_store_memory=RT_STORE_BYTES)
+    algo = None
+    try:
+        algo = MultiAgentPPOConfig(env_ctor=_ma_env, device=str(dev), **RL_MA).build()
+        learner = algo.learners["shared"]
+        if not all(t.device == dev for t in learner.params.values()):
+            raise AssertionError(f"7i(b): MultiAgentPPO's learner is not on {dev}")
+        learn = {"s": 0.0, "n": 0}
+        update = learner.update_minibatch
+
+        def timed_update(batch):
+            t0 = time.perf_counter()
+            aux = update(batch)
+            torch.cuda.synchronize()
+            learn["s"] += time.perf_counter() - t0
+            learn["n"] += 1
+            return aux
+
+        learner.update_minibatch = timed_update
+        iters = []
+        result = {}
+        for _ in range(RL_MA_ITERS):
+            learn.update(s=0.0, n=0)
+            result = algo.train()
+            iters.append(dict(ret=result["episode_return_mean"], iter_s=result["time_this_iter_s"],
+                              learn_s=learn["s"], sample_s=result["time_this_iter_s"] - learn["s"],
+                              updates=learn["n"]))
+            if result["episode_return_mean"] > RL_MA_BAR:
+                break
+        n_upd = sum(it["updates"] for it in iters)
+        learn_s = sum(it["learn_s"] for it in iters)
+        stats["b"] = dict(iterations=len(iters), episode_return_mean=result["episode_return_mean"],
+                          iters=iters, updates_per_s=n_upd / learn_s, setup_s=time.perf_counter() - t_init)
+        log(f"rl (b): MultiAgentPPO on CueMatchEnv {RL_MA_ENV}: episode_return_mean "
+            f"{result['episode_return_mean']:.3f} after {len(iters)} iterations (bar {RL_MA_BAR}); per iteration "
+            f"s {[round(it['iter_s'], 3) for it in iters]}, of which learning "
+            f"{[round(it['learn_s'], 3) for it in iters]} and sampling (with the host work around it) "
+            f"{[round(it['sample_s'], 3) for it in iters]}; {n_upd / learn_s:.1f} learner updates/s  [{card}]")
+        if not result["episode_return_mean"] > RL_MA_BAR:
+            raise AssertionError(f"7i(b): episode_return_mean {result['episode_return_mean']} <= {RL_MA_BAR} "
+                                 f"after {RL_MA_ITERS} iterations")
+    finally:
+        if algo is not None:
+            algo.stop()
+        rt.shutdown()
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("rt.shutdown() left the runtime up")
+    stats["total_s"] = time.perf_counter() - t_start
+    return stats
+
+
 KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -3637,15 +4201,18 @@ def _run(args, dev, rng):
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
     plane, tp_launches, tps_launches = phase_train_plane(dev, card, phase6)
+    tune_stats, tn_launches = phase_tune(dev, card)
+    rl = phase_rl(dev, card)
     # Launches by path: serve, serve_prefix, serve_openai, serve_runtime,
     # serve_app, dag, data_batch, data_ingest, train, train_plane (K1-K3 in
-    # the train workers' processes) and train_plane_serve are the 250M cells
+    # the train workers' processes), train_plane_serve and tune (K1-K3 in the
+    # trials' processes) are the 250M cells
     # (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
              "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "data_batch": db_launches,
              "data_ingest": di_launches, "train": t_launches, "train_plane": tp_launches,
-             "train_plane_serve": tps_launches,
+             "train_plane_serve": tps_launches, "tune": tn_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -3687,6 +4254,8 @@ def _run(args, dev, rng):
     log(json.dumps({"train_mistral7b": m_train}))
     log(json.dumps({"train_gemma2b": g_train}))
     log(json.dumps({"train_plane": plane}))
+    log(json.dumps({"tune": tune_stats}))
+    log(json.dumps({"rl": rl}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ modules (tokenizer, metrics, tracing, qos, the HTTP types) and its runtime
 on the GPU unless told otherwise, and a worker process of a port cluster,
 a serve replica hosting the engine included, loads neither jax nor any
 ray_tpu module, nor does either stage of a compiled DAG, a Data actor
-pool's worker, a streaming split's consumer or a train worker (the train,
-collective, ckpt and elastic packages imported in the driver too)."""
+pool's worker, a streaming split's consumer, a train worker (the train,
+collective, ckpt and elastic packages imported in the driver too), a Tune
+trial or an RL env runner (tune and rl imported in the driver too, without
+gymnasium)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -292,6 +294,93 @@ def test_train_workers_load_no_jax_and_no_ray_tpu(tmp_path):
     that sees no CUDA device fails the run instead of training on the
     CPU."""
     out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE, str(tmp_path)], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+_TUNE_RL_PROBE = """
+import sys
+import ray_tpu_torch.tune, ray_tpu_torch.rl, ray_tpu_torch.tune.tuner, ray_tpu_torch.rl.offline
+
+def _bad():
+    import sys
+    return [m for m in sys.modules if m in ("ray_tpu", "jax", "gymnasium")
+            or m.startswith(("ray_tpu.", "jax.", "gymnasium."))]
+
+assert not _bad(), _bad()
+import numpy as np
+import ray_tpu_torch as rt
+from ray_tpu_torch import tune
+from ray_tpu_torch.core.serialization import DeviceUnavailableError
+from ray_tpu_torch.rl.module import init_params
+from ray_tpu_torch.rl.multi_agent import CueMatchEnv, MultiAgentEnvRunner
+from ray_tpu_torch.train import RunConfig
+
+class Runner(MultiAgentEnvRunner):
+    def modules(self):
+        import sys
+        return sorted(sys.modules)
+
+def trainable(config):
+    import sys
+    tune.report({"bad": ",".join(_bad()), "session": "ray_tpu_torch.train.session" in sys.modules})
+
+def gpu_trainable(config):
+    tune.report({"trained": 1})
+
+rt.init(num_cpus=3, resources={"GPU": 1})
+try:
+    grid = tune.Tuner(trainable, param_space={"x": tune.grid_search([1, 2])},
+                      run_config=RunConfig(name="guard", storage_path=sys.argv[1])).fit()
+    assert not grid.errors, grid.errors
+    assert all(r.metrics["bad"] == "" and r.metrics["session"] for r in grid), [r.metrics for r in grid]
+    runner = rt.remote(Runner).remote(lambda: CueMatchEnv(n_agents=2, n_cues=4, ep_len=8), 2, 4,
+                                      {"agent_0": "p", "agent_1": "p"}, seed=0)
+    rt.get(runner.set_weights.remote({"p": init_params(np.random.default_rng(0), 4, 4, (8,))}), timeout=120)
+    assert rt.get(runner.sample.remote(), timeout=120)["steps"] == 4 * 2 * 2
+    mods = rt.get(runner.modules.remote(), timeout=60)
+    assert "ray_tpu_torch.rl.multi_agent" in mods, mods
+    bad = [m for m in mods if m in ("ray_tpu", "jax", "torch") or m.startswith(("ray_tpu.", "jax.", "torch."))]
+    assert not bad, bad
+    rt.kill(runner)
+    # A trial given a GPU share runs only where CUDA is visible.
+    grid = tune.Tuner(gpu_trainable, param_space={"x": tune.grid_search([1])},
+                      tune_config=tune.TuneConfig(resources_per_trial={"GPU": 0.5}),
+                      run_config=RunConfig(name="guard-gpu", storage_path=sys.argv[1])).fit()
+    import torch
+    if torch.cuda.is_available():
+        assert not grid.errors, grid.errors
+    else:
+        assert len(grid.errors) == 1 and "DeviceUnavailableError" in grid.errors[0], grid.errors
+        assert grid[0].metrics_history == []
+finally:
+    rt.shutdown()
+# Every learner runs on the GPU unless told otherwise; with none visible it raises.
+import chip_smoke as cs
+for name in cs.RL_LEARNERS:
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in cs.rl_learner(name, cs.rl_case(name), None).params.values())
+        continue
+    try:
+        cs.rl_learner(name, cs.rl_case(name), None)
+    except DeviceUnavailableError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError(f"{name}'s learner built on the CPU with device=None")
+assert not _bad(), _bad()
+print("clean")
+"""
+
+
+def test_tune_trials_and_rl_runners_load_no_jax_and_no_ray_tpu(tmp_path):
+    """``import ray_tpu_torch.tune`` and ``ray_tpu_torch.rl`` load neither
+    jax, gymnasium nor any ray_tpu module; a Tune trial actor and a
+    multi-agent env runner (numpy) load neither jax nor ray_tpu, and the
+    runner no torch. A trial given {"GPU": 0.5} that sees no CUDA device
+    fails with DeviceUnavailableError, and every RL learner asked for no
+    device raises it where no GPU is visible."""
+    out = subprocess.run([sys.executable, "-c", _TUNE_RL_PROBE, str(tmp_path)], cwd=REPO,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "clean"
