@@ -248,6 +248,28 @@ Phases, in order; any failure exits non-zero:
      losses bitwise equal, launches K1 24 / K3 12 / K2 12 per step. Printed:
      the infeed's H2D GB/s beside a bare .cuda() of the same batches, over
      one stream of 30 training batches (262 KB each) and of 3 of 64 MiB.
+  6j. serve-tp-250M: tensor-parallel serving of phase 6's engine config
+     (paged, page 128, 32 slots, seed weights) over slots of cuda:0
+     (RAY_TPU_TORCH_DEVICE_SLOTS=4, set for this phase only): TP 1 (phase
+     6's engine, rebuilt for its prefill logits), then tensor_parallel=2 on
+     phase 6's 32 prompts x 64 tokens and 4 on the first 8. Gates: each TP
+     engine's prefill logits within phase 6's bounds (max <= 0.25, mean <=
+     0.02) of the TP-1 engine's; on TP 1's greedy streams of the first 8
+     prompts, forced into each TP engine (its sampler returns TP 1's
+     tokens), every decode step's logits of the occupied slots within the
+     same bounds of TP 1's; K4 through paged_attention's mesh branch at the
+     degree's per-slot shape (16/tp heads, 4/tp KV heads, 32 sequences)
+     against paged_attention_reference on each slot's q and pool shards
+     (2e-2, as phase 1's K4); two TP-2 runs (tokens and prefill logits)
+     bitwise equal; K1 launched exactly tp x 12 per prefill group and K4 tp
+     x 12 per decode step; each slot's wq holds 16/tp heads, its w_gate
+     4096/tp columns and its pool 4/tp KV heads, each shard contiguous; a
+     TP-2 tree through rt.put / rt.get ships one buffer per unique shard,
+     its bytes the unique shards' bytes, and an engine built on it gives
+     the same tokens. Printed: how many of the greedy streams match TP 1
+     exactly and the first divergence, TTFT, decode tok/s and peak memory
+     per degree. Slots of one card check the sharded path; they are not a
+     speed-up.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -352,11 +374,24 @@ Phases, in order; any failure exits non-zero:
      iteration's time split into learning (the learner's updates, each
      synchronized) and sampling with the host work around it, and learner
      updates/s.
+  7j. parallel-train-250M: 7's configuration (remat "dots") on rows 0-7 of
+     its batch (B 8 x S 2048), seed-0 state, 3 steps of each over slots of
+     cuda:0 (RAY_TPU_TORCH_DEVICE_SLOTS=4, this phase only): (a) dp 2 x tp
+     2, (b) fsdp 4, (c) attention_impl "ulysses" at seq 4 (4 heads and 1 KV
+     head per slot), (d) "ring" at seq 4, (e) make_pipeline_train_step at
+     stage 4 x n_micro 4 (3 layers a stage). Gates: every step's loss within
+     1e-3 relative and grad_norm within 1e-2 of the single-slot step on the
+     same weights and batch; after step 1 every leaf's gradient (gathered
+     from its master shards) within 5e-2 relative L2 of the single-slot
+     step's, and the updated wq within 5e-3; losses fall; every leaf's per-slot shard shape
+     follows the strategy's spec; K1 / K3 / K2 launches exact in (a) and
+     (c) (4 slots x 12 layers, K1 twice under remat) and (e) (4 microbatches
+     x 12 layers). Printed: step times and peak memory.
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
      {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"data": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"train_plane": ...},
-     {"tune": ...}, {"rl": ...}, {"kernels": [...]}
+     {"tune": ...}, {"rl": ...}, {"engine_tp": ...}, {"train_parallel": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
      registers and spills per instance, null where this run did not
@@ -4140,6 +4175,439 @@ def profile_engine(eng, prompts, out_dir, max_tokens=MAX_TOKENS, prefix=""):
         eng.step()
 
 
+# Phase 6j (serve-tp-250M) and 7j (parallel-train-250M): the tensor-parallel
+# engine and the sharded training steps over SLOTS_TP slots of cuda:0
+# (RAY_TPU_TORCH_DEVICE_SLOTS, set for these phases only). TP_FULL runs
+# phase 6's 32 prompts, the other degrees the first TP_SHORT.
+SLOTS_TP = 4
+TP_DEGREES, TP_FULL, TP_SHORT = (2, 4), 2, 8
+PAR_B, PAR_STEPS = 8, 3  # 7j: rows 0-7 of the training batch, steps per case
+PAR_LOSS_RTOL, PAR_GNORM_RTOL = 1e-3, 1e-2
+# After step 1, against the single-slot step: every leaf's gradient
+# (relative L2) and the updated wq (relative L2; AdamW's first update is
+# lr x sign(g), so only signs that bf16 noise flips move it).
+PAR_GRAD_RTOL, PAR_WQ_RTOL = 5e-2, 5e-3
+# (name, mesh axes, strategy, attention_impl, pipeline microbatches)
+PAR_CASES = (("dp2_tp2", dict(data=2, tensor=2), "dp+tp", "auto", 0),
+             ("fsdp4", dict(fsdp=4), "fsdp", "auto", 0),
+             ("ulysses_seq4", dict(seq=4), "dp+sp", "ulysses", 0),
+             ("ring_seq4", dict(seq=4), "dp+sp", "ring", 0),
+             ("pipeline_stage4", dict(stage=4), "dp+pp", "auto", 4))
+
+
+class _slots:
+    """RAY_TPU_TORCH_DEVICE_SLOTS=n for a with-block; the earlier value (or
+    its absence) is restored after it."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        from ray_tpu_torch.parallel.mesh import SLOTS_ENV
+
+        self.old = os.environ.get(SLOTS_ENV)
+        os.environ[SLOTS_ENV] = str(self.n)
+
+    def __exit__(self, *exc):
+        from ray_tpu_torch.parallel.mesh import SLOTS_ENV
+
+        if self.old is None:
+            os.environ.pop(SLOTS_ENV, None)
+        else:
+            os.environ[SLOTS_ENV] = self.old
+
+
+def _tp_logits(eng, prompts):
+    """The engine's prefill logits [n, V] for whole prompts, groups of 8
+    against the dead page (as check_first_tokens)."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for i in range(0, len(prompts), 8):
+            part = np.stack(prompts[i:i + 8])
+            m, P = part.shape
+            out.append(eng._prefill_logits(part, np.full(m, P, np.int32),
+                                           np.zeros((m, P // eng.ec.page_size), np.int32)))
+    return torch.cat(out)
+
+
+def _shard_checks(eng, tp):
+    """Each slot's wq heads, w_gate columns and pool KV heads, every shard
+    its own contiguous, 16-byte aligned tensor."""
+    shapes = dict(wq=[s.data.shape[2] for s in eng.params["layers"]["wq"].addressable_shards],
+                  w_gate=[s.data.shape[2] for s in eng.params["layers"]["w_gate"].addressable_shards],
+                  k_pool=[s.data.shape[1] for s in eng.k_pages.addressable_shards])
+    want = dict(wq=[H // tp] * tp, w_gate=[MODEL["d_ff"] // tp] * tp, k_pool=[KV // tp] * tp)
+    leaves = [eng.params["embed"], eng.params["final_norm"], eng.params["lm_head"], eng.k_pages, eng.v_pages,
+              *eng.params["layers"].values()]
+    bad = [s.data.shape for t in leaves for s in t.addressable_shards
+           if not s.data.is_contiguous() or s.data.data_ptr() % 16]
+    if shapes != want or bad:
+        raise AssertionError(f"TP-{tp} shards: {shapes} != {want}, or not contiguous/aligned: {bad}")
+    return shapes
+
+
+def _forced_streams(eng, prompts, forced=None):
+    """Drives ``prompts`` with ``eng._sample`` wrapped: every call's fp32
+    logits are recorded beside whether it is a decode step and which slots
+    hold a request then. With ``forced`` (an earlier recording on the same
+    prompts) the wrapper returns that run's tokens instead of sampling, so
+    this engine decodes the same streams on its own KV cache and every call
+    lines up with the recorded one. Returns the recording; with ``forced``
+    also the max and mean |logits - forced logits| over the decode steps'
+    occupied rows."""
+    import torch
+
+    calls, in_decode = [], [False]
+    sample, decode = eng._sample, eng._decode
+
+    def recorded(logits, *a):
+        i = len(calls)
+        toks = sample(logits, *a) if forced is None else forced[i][3]
+        rows = [j for j, s in enumerate(eng.slots) if s is not None] if in_decode[0] else None
+        calls.append((logits.float(), in_decode[0], rows, toks))
+        return toks
+
+    def flagged(n, gen):
+        in_decode[0] = True
+        try:
+            return decode(n, gen)
+        finally:
+            in_decode[0] = False
+
+    eng._sample, eng._decode = recorded, flagged
+    try:
+        drive(eng, prompts, MAX_TOKENS, prefix="f")
+    finally:
+        del eng._sample, eng._decode  # back to the class's methods
+    if forced is None:
+        return calls
+    if len(calls) != len(forced):
+        raise AssertionError(f"the forced run made {len(calls)} sampling calls, the recorded one {len(forced)}")
+    worst, total, count = 0.0, 0.0, 0
+    for (got, dec, rows, _), (want, dec_w, rows_w, _) in zip(calls, forced):
+        if dec != dec_w or rows != rows_w:
+            raise AssertionError("the forced run's schedule differs from the recorded one")
+        if dec:
+            diff = (got[rows] - want[rows]).abs()
+            if not bool(torch.isfinite(got[rows]).all()):
+                raise AssertionError("non-finite decode logits")
+            worst = max(worst, diff.max().item())
+            total += diff.sum().item()
+            count += diff.numel()
+    return calls, worst, total / count
+
+
+def _k4_shards(dev, eng, tp):
+    """K4 through paged_attention's mesh branch at the TP engine's decode
+    shape (32 sequences, 16/tp heads and 4/tp KV heads per slot, page 128,
+    16 pages a sequence): each slot's output against
+    paged_attention_reference on the same q and pool shards, at the K4
+    phase's tolerance (2e-2), and the gathered output against the
+    reference on the whole tensors. Returns the worst |o - o_ref|."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.parallel.sharding import NamedSharding
+    from ray_tpu_torch.parallel.sharding import PartitionSpec as P
+    from ray_tpu_torch.parallel.sharding import device_put
+
+    rng = np.random.default_rng(15)
+    ppseq = eng.ppseq
+    lengths = [int(n) for n in rng.integers(PROMPT_LEN + 1, PROMPT_LEN + MAX_TOKENS + 1, SLOTS)]
+    lengths[:3] = [0, 1, ppseq * PAGE]
+    q, kp, vp, lens, table = _paged_case(dev, rng, lengths, PAGE, ppseq, H, KV, D)
+    pool = NamedSharding(eng.mesh, P("tensor", None, None, None))
+    qs = device_put(q, NamedSharding(eng.mesh, P(None, "tensor", None)))
+    kps, vps = device_put(kp, pool), device_put(vp, pool)
+    o = pa.paged_attention(qs, kps, vps, lens, table, mesh=eng.mesh)
+    torch.cuda.synchronize()
+    err = 0.0
+    for so, sq, sk, sv in zip(o.addressable_shards, qs.addressable_shards, kps.addressable_shards,
+                              vps.addressable_shards):
+        if so.data.shape != (SLOTS, H // tp, D) or sk.data.shape[0] != KV // tp:
+            raise AssertionError(f"K4 TP-{tp} shard shapes q {tuple(so.data.shape)} pool {tuple(sk.data.shape)}")
+        want = pa.paged_attention_reference(sq.data.float(), sk.data.float(), sv.data.float(), lens, table)
+        err = max(err, (so.data.float() - want).abs().max().item())
+    whole = (o.full().float() - pa.paged_attention_reference(q.float(), kp.float(), vp.float(), lens, table)).abs()
+    err = max(err, whole.max().item())
+    log(f"K4 per slot at TP {tp} (H {H // tp} KV {KV // tp} a slot, B {SLOTS}, lengths {min(lengths)}..{max(lengths)}): "
+        f"max|o-ref| {err:.3e}")
+    if not (err <= 2e-2 and bool(torch.isfinite(o.full()).all())):
+        raise AssertionError(f"K4 per slot at TP {tp} disagrees with paged_attention_reference: {err}")
+    return err
+
+
+def _tp_handoff(dev, eng, cfg, prompts, tokens):
+    """The TP-2 tree through the object store: one buffer per unique shard,
+    bytes equal to the unique shards' bytes; an engine on the fetched tree
+    gives the same greedy tokens."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import serialization as S
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.transformer import leaves
+
+    uniq = [m for leaf in leaves(eng.params) for m in leaf.masters()]
+    want_bytes = sum(t.numel() * t.element_size() for t in uniq)
+    parts, _refs, _total = S.serialize_parts(eng.params)
+    payloads = parts[2:-1:2]
+    shipped = sum(memoryview(p).nbytes for p in payloads)
+    if len(payloads) != len(uniq) or shipped != want_bytes:
+        raise AssertionError(f"TP-2 tree ships {len(payloads)} buffers / {shipped} bytes, "
+                             f"want {len(uniq)} / {want_bytes}")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=2, object_store_memory=RT_STORE_BYTES)
+    try:
+        ref = rt.put(eng.params)
+        fetched = rt.get(ref, timeout=RT_TIMEOUT_S)
+    finally:
+        rt.shutdown()
+    hop_s = time.perf_counter() - t0
+    wq = fetched["layers"]["wq"]
+    if len(wq.masters()) != 2 or not all(s.data.device.type == dev.type for s in wq.addressable_shards):
+        raise AssertionError(f"the fetched TP-2 tree lost its shards: {wq}")
+    served = LLMEngine(cfg, params=fetched, engine_config=EngineConfig(
+        max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0, tensor_parallel=2))
+    del fetched
+    done, _ttft, _t0, _t1 = drive(served, prompts, MAX_TOKENS)
+    got = [done[f"r{i}"]["tokens"] for i in range(len(prompts))]
+    if got != tokens:
+        raise AssertionError("an engine on the TP-2 tree fetched through the object store gives other tokens")
+    del served
+    torch.cuda.empty_cache()
+    return dict(buffers=len(payloads), bytes=shipped, rt_hop_s=hop_s, tokens_equal=True)
+
+
+def phase_serve_tp(dev, card, phase6):
+    """Phase 6j (serve-tp-250M). Returns (stats, launches summed over the
+    TP runs' drives)."""
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    prompts, tokens6 = phase6
+    cfg = TransformerConfig(**MODEL)
+    ec = dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0)
+    out = dict(card=card, slots=SLOTS_TP, degrees={})
+    launches = {"flash_fwd": 0, "paged_decode": 0}
+    with _slots(SLOTS_TP):
+        one = LLMEngine(cfg, engine_config=EngineConfig(**ec))
+        ref_logits = _tp_logits(one, prompts)
+        # TP 1's greedy streams of the first TP_SHORT prompts and the logits
+        # of every decode step, which each TP engine is then held to on the
+        # same streams.
+        forced = _forced_streams(one, prompts[:TP_SHORT])
+        del one
+        torch.cuda.empty_cache()
+        for tp in TP_DEGREES:
+            n = len(prompts) if tp == TP_FULL else TP_SHORT
+            t0 = time.perf_counter()
+            eng = LLMEngine(cfg, engine_config=EngineConfig(**ec, tensor_parallel=tp))
+            built_s = time.perf_counter() - t0
+            shapes = _shard_checks(eng, tp)
+            eng.warmup()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            groups, steps, undo = _count_calls(eng)
+            attention.LAUNCHES = paged_attention.LAUNCHES = 0
+            done, ttft, t0, t1 = drive(eng, prompts[:n], MAX_TOKENS)
+            got = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+            undo()
+            want = {"flash_fwd": tp * cfg.n_layers * len(groups), "paged_decode": tp * cfg.n_layers * sum(steps)}
+            stats = serve_stats(done, ttft, t0, t1)
+            if not _finished(done, n, cfg.vocab_size):
+                raise AssertionError(f"TP-{tp} run did not finish every request with {MAX_TOKENS} valid tokens")
+            if got != want:
+                raise AssertionError(f"TP-{tp} launches {got} != {want} (tp x layers per prefill group / decode step)")
+            for k in launches:
+                launches[k] += got[k]
+            logits = _tp_logits(eng, prompts[:n])
+            diff = (logits - ref_logits[:n]).abs()
+            if not (bool(torch.isfinite(logits).all()) and diff.max() <= 0.25 and diff.mean() <= 0.02):
+                raise AssertionError(f"TP-{tp} prefill logits vs TP 1: max {diff.max().item()} mean {diff.mean().item()}")
+            # Decode on the card at this degree's shapes: K4 per slot against
+            # its plain version, and the decode-step logits on TP 1's forced
+            # streams within phase 6's bounds of TP 1's.
+            k4_err = _k4_shards(dev, eng, tp)
+            _, dec_max, dec_mean = _forced_streams(eng, prompts[:TP_SHORT], forced)
+            if not (dec_max <= 0.25 and dec_mean <= 0.02):
+                raise AssertionError(f"TP-{tp} decode logits on TP 1's streams: max {dec_max} mean {dec_mean}")
+            toks = [done[f"r{i}"]["tokens"] for i in range(n)]
+            same = sum(t == tokens6[f"r{i}"] for i, t in enumerate(toks))
+            first_div = min((next(j for j, (a, b) in enumerate(zip(t, tokens6[f"r{i}"])) if a != b), i)
+                            for i, t in enumerate(toks) if t != tokens6[f"r{i}"]) if same < n else None
+            row = dict(requests=n, built_s=built_s, shard_dims=shapes, launches=got, prefill_groups=len(groups),
+                       decode_steps=sum(steps), logits_max_diff=diff.max().item(),
+                       logits_mean_diff=diff.mean().item(), k4_per_slot_max_abs_err=k4_err,
+                       decode_logits_max_diff=dec_max, decode_logits_mean_diff=dec_mean,
+                       greedy_streams_equal_tp1=same,
+                       first_divergence=None if first_div is None else dict(token=first_div[0], request=first_div[1]),
+                       **stats)
+            log(f"serve tp {tp}: {n} requests x {MAX_TOKENS} tokens over {tp} slots of {dev}, TTFT p50 "
+                f"{stats['ttft_p50_ms']:.2f} ms p99 {stats['ttft_p99_ms']:.2f} ms, decode {stats['decode_tok_s']:.1f} "
+                f"tok/s, peak mem {stats['peak_mem_gb']:.2f} GB  [{card}]")
+            log(f"  launches K1 {got['flash_fwd']} ({len(groups)} groups) K4 {got['paged_decode']} ({sum(steps)} steps); "
+                f"prefill logits vs TP 1: max {diff.max().item():.4f} mean {diff.mean().item():.5f}; greedy streams "
+                f"equal to TP 1: {same}/{n}, first divergence {row['first_divergence']}")
+            log(f"  decode on TP 1's streams ({TP_SHORT} prompts, {len(forced)} sampling calls): logits vs TP 1 max "
+                f"{dec_max:.4f} mean {dec_mean:.5f}; K4 per slot max|o-ref| {k4_err:.3e}")
+            if tp == 2:
+                # Two TP-2 runs bitwise equal (tokens and prefill logits).
+                done2, _, _, _ = drive(eng, prompts[:TP_SHORT], MAX_TOKENS, prefix="s")
+                again = [done2[f"s{i}"]["tokens"] for i in range(TP_SHORT)]
+                if again != toks[:TP_SHORT] or not torch.equal(_tp_logits(eng, prompts[:TP_SHORT]),
+                                                               logits[:TP_SHORT]):
+                    raise AssertionError("two TP-2 runs are not bitwise equal")
+                row["rerun_bitwise_equal"] = True
+                row["handoff"] = _tp_handoff(dev, eng, cfg, prompts[:TP_SHORT], toks[:TP_SHORT])
+                log(f"  rerun bitwise equal; rt.put/rt.get of the TP-2 tree: {row['handoff']['buffers']} buffers, "
+                    f"{row['handoff']['bytes']} bytes (the unique shards'), {row['handoff']['rt_hop_s']:.2f} s, "
+                    f"tokens equal")
+            out["degrees"][str(tp)] = row
+            del eng
+            torch.cuda.empty_cache()
+    return out, launches
+
+
+def _expected_shard(shape, spec, mesh):
+    from ray_tpu_torch.parallel.sharding import entry_axes
+
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // math.prod(mesh.shape[a] for a in entry_axes(e)) for n, e in zip(shape, spec))
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _sharded_grad(leaf):
+    """A ShardedTensor parameter's gradient as one tensor: its master
+    shards' grads, assembled under its spec."""
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+    grads = [leaf.locals[leaf.master_of(s)].grad for s in range(leaf.mesh.size)]
+    return ShardedTensor(grads, leaf.sharding, leaf.shape).full()
+
+
+def phase_parallel_train(dev, card):
+    """Phase 7j (parallel-train-250M). Returns (stats, launches summed over
+    the cases' timed steps)."""
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, make_pipeline_train_step, make_train_step, state_logical_axes
+    from ray_tpu_torch.models.transformer import leaves
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel import MeshSpec, ShardingStrategy, device_put, devices, shard_pytree, use_strategy
+
+    base = TransformerConfig(**MODEL, remat=True, remat_policy="dots")
+    L = base.n_layers
+
+    def fresh(cfg):
+        init_state, step = make_train_step(cfg)
+        g = torch.Generator(device=dev).manual_seed(0)
+        state = init_state(g, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), generator=g, device=dev)[:PAR_B]
+        return state, step, toks
+
+    def k123():
+        return {"flash_fwd": attention.LAUNCHES, "flash_bwd_dq": attention.BWD_DQ_LAUNCHES,
+                "flash_bwd_dkv": attention.BWD_DKV_LAUNCHES}
+
+    state, step, toks = fresh(base)
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_ms = [], []
+    for i in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        ref.append(step(state, {"tokens": toks}))
+        torch.cuda.synchronize()
+        ref_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:  # step 1's gradients and updated wq, which every case is held to
+            ref_grads = [t.grad.detach().clone() for t in leaves(state["params"])]
+            ref_wq = state["params"]["layers"]["wq"].detach().clone()
+    ref_loss = [m["loss"].item() for m in ref]
+    ref_norm = [m["grad_norm"].item() for m in ref]
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    log(f"train parallel: single-slot reference B {PAR_B} x S {TRAIN_S}: loss {' '.join(f'{x:.4f}' for x in ref_loss)}"
+        f"  grad_norm {' '.join(f'{x:.3f}' for x in ref_norm)}, step ms {' '.join(f'{x:.1f}' for x in ref_ms)}, "
+        f"peak mem {ref_peak:.2f} GB  [{card}]")
+    out = dict(card=card, slots=SLOTS_TP, batch=[PAR_B, TRAIN_S], reference_loss=ref_loss,
+               reference_grad_norm=ref_norm, reference_step_ms=ref_ms, reference_peak_mem_gb=ref_peak, cases={})
+    launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    with _slots(SLOTS_TP):
+        for name, axes, strat_name, impl, n_micro in PAR_CASES:
+            cfg = dataclasses.replace(base, attention_impl=impl)
+            state, step, toks = fresh(cfg)
+            mesh = MeshSpec(**axes).build(devices())
+            strat = ShardingStrategy.named(strat_name)
+            if n_micro:
+                _, step = make_pipeline_train_step(cfg, mesh, n_micro=n_micro)
+            with use_strategy(strat), mesh:
+                st = shard_pytree(state, state_logical_axes(state, cfg), mesh, strat)
+                del state
+                bad = [(s.data.shape, _expected_shard(leaf.shape, leaf.spec, mesh)) for leaf in leaves(st["params"])
+                       for s in leaf.addressable_shards
+                       if tuple(s.data.shape) != _expected_shard(leaf.shape, leaf.spec, mesh)]
+                if bad:
+                    raise AssertionError(f"7j {name}: shards off their spec: {bad[:4]}")
+                batch = {"tokens": device_put(toks, strat.sharding(mesh, ("batch", None)))}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                attention.LAUNCHES = attention.BWD_DQ_LAUNCHES = attention.BWD_DKV_LAUNCHES = 0
+                times, ms = [], []
+                for i in range(PAR_STEPS):
+                    t0 = time.perf_counter()
+                    ms.append(step(st, batch))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    if i == 0:  # gathers only: no kernel launches
+                        with torch.no_grad():
+                            grad_err = max(_rel_l2(_sharded_grad(leaf), g)
+                                           for leaf, g in zip(leaves(st["params"]), ref_grads))
+                            wq_err = _rel_l2(st["params"]["layers"]["wq"].full(), ref_wq)
+                got = k123()
+            loss = [m["loss"].item() for m in ms]
+            norm = [m["grad_norm"].item() for m in ms]
+            rel_l = [abs(a - b) / abs(b) for a, b in zip(loss, ref_loss)]
+            rel_n = [abs(a - b) / abs(b) for a, b in zip(norm, ref_norm)]
+            row = dict(mesh=axes, strategy=strat_name, attention_impl=impl, n_micro=n_micro, loss=loss,
+                       grad_norm=norm, loss_rel_err=max(rel_l), grad_norm_rel_err=max(rel_n),
+                       step1_grad_rel_l2_max=grad_err, step1_wq_rel_l2=wq_err,
+                       step_ms=[1e3 * t for t in times], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=got)
+            log(f"train parallel {name} ({strat_name}, {impl}{f', n_micro {n_micro}' if n_micro else ''}): loss "
+                f"{' '.join(f'{x:.4f}' for x in loss)} (rel {max(rel_l):.2e}), grad_norm "
+                f"{' '.join(f'{x:.3f}' for x in norm)} (rel {max(rel_n):.2e}), step 1's grads rel L2 <= "
+                f"{grad_err:.2e}, wq {wq_err:.2e}, step ms "
+                f"{' '.join(f'{1e3 * t:.1f}' for t in times)}, peak mem {row['peak_mem_gb']:.2f} GB, launches K1 "
+                f"{got['flash_fwd']} K3 {got['flash_bwd_dq']} K2 {got['flash_bwd_dkv']}  [{card}]")
+            if not (all(math.isfinite(x) for x in loss + norm) and max(rel_l) <= PAR_LOSS_RTOL
+                    and max(rel_n) <= PAR_GNORM_RTOL and loss[-1] < loss[0]
+                    and grad_err <= PAR_GRAD_RTOL and wq_err <= PAR_WQ_RTOL):
+                raise AssertionError(f"7j {name}: loss {loss} / grad_norm {norm} vs the single-slot step "
+                                     f"{ref_loss} / {ref_norm}; step 1's grads rel L2 {grad_err}, wq {wq_err}")
+            # Exact launches: one flash call per slot (or microbatch) per layer,
+            # K1 twice under remat "dots".
+            calls = {"dp2_tp2": SLOTS_TP, "ulysses_seq4": SLOTS_TP, "pipeline_stage4": n_micro}.get(name)
+            if calls is not None:
+                want = {"flash_fwd": 2 * calls * L * PAR_STEPS, "flash_bwd_dq": calls * L * PAR_STEPS,
+                        "flash_bwd_dkv": calls * L * PAR_STEPS}
+                if got != want:
+                    raise AssertionError(f"7j {name}: launches {got} != {want}")
+            for k in launches:
+                launches[k] += got[k]
+            out["cases"][name] = row
+            del st, batch
+            torch.cuda.empty_cache()
+    return out, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace the paged engine's steps and a training step into DIR")
@@ -4197,22 +4665,26 @@ def _run(args, dev, rng):
     app_serve, a_launches = phase_serve_app(dev, stats, phase6, oai)
     dag, d_launches = phase_dag(dev, rt_serve["transport"])
     data, db_launches, di_launches = phase_data(dev, card, stats, phase6)
+    serve_tp, tp_serve_launches = phase_serve_tp(dev, card, phase6)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
     plane, tp_launches, tps_launches = phase_train_plane(dev, card, phase6)
     tune_stats, tn_launches = phase_tune(dev, card)
     rl = phase_rl(dev, card)
+    train_par, tpar_launches = phase_parallel_train(dev, card)
     # Launches by path: serve, serve_prefix, serve_openai, serve_runtime,
     # serve_app, dag, data_batch, data_ingest, train, train_plane (K1-K3 in
-    # the train workers' processes), train_plane_serve and tune (K1-K3 in the
-    # trials' processes) are the 250M cells
+    # the train workers' processes), train_plane_serve, tune (K1-K3 in the
+    # trials' processes), tp_serve (6j: K1/K4 per head shard) and
+    # parallel_train (7j: K1-K3 per slot or microbatch) are the 250M cells
     # (D 64); serve_mistral7b and train_mistral7b the 7B cells
     # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
              "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "data_batch": db_launches,
              "data_ingest": di_launches, "train": t_launches, "train_plane": tp_launches,
-             "train_plane_serve": tps_launches, "tune": tn_launches,
+             "train_plane_serve": tps_launches, "tune": tn_launches, "tp_serve": tp_serve_launches,
+             "parallel_train": tpar_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -4256,6 +4728,8 @@ def _run(args, dev, rng):
     log(json.dumps({"train_plane": plane}))
     log(json.dumps({"tune": tune_stats}))
     log(json.dumps({"rl": rl}))
+    log(json.dumps({"engine_tp": serve_tp}))
+    log(json.dumps({"train_parallel": train_par}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,8 +54,11 @@ def from_numpy_tree(tree: dict, cfg: TransformerConfig, device=None) -> dict:
 
 def to_numpy_tree(params: dict) -> dict:
     """The port's parameter tree -> the same tree with numpy leaves on the
-    host (bf16 leaves come back as fp32: numpy has no bf16)."""
+    host (bf16 leaves come back as fp32: numpy has no bf16). A sharded tree
+    (ShardedTensor leaves) is gathered leaf by leaf."""
     def leaf(t):
+        if hasattr(t, "full"):  # a ShardedTensor
+            t = t.full()
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 

@@ -103,6 +103,78 @@ def _reduce_tensor(obj):
     )
 
 
+def _reduce_sharded(obj):
+    """The out-of-band reduce of a ``ray_tpu_torch.parallel.ShardedTensor``:
+    one buffer per UNIQUE shard (a block that several slots replicate
+    travels once), each shard's bytes taken from its own slot (one D2H copy
+    per shard, never a gather of the whole array), with the global shape,
+    the dtype, the mesh's axis names and shape, the spec and each slot's
+    buffer in the pickle body."""
+    hosts, indices, slot_to_host = [], [], []
+    seen: dict = {}
+    for s, t in enumerate(obj.locals):
+        key = obj.block(s)
+        k = seen.get(key)
+        if k is None:
+            k = seen[key] = len(hosts)
+            raw = t.detach().contiguous().reshape(-1).view(__import__("torch").uint8)
+            hosts.append(pickle.PickleBuffer((raw.cpu() if raw.device.type != "cpu" else raw).numpy()))
+            indices.append(key)
+        slot_to_host.append(k)
+    mesh = obj.mesh
+    return (
+        _restore_sharded,
+        (hosts, indices, slot_to_host, tuple(obj.shape), str(obj.dtype).removeprefix("torch."),
+         tuple(mesh.axis_names), tuple(mesh.devices.shape), tuple(obj.spec),
+         mesh.slot_devices[0].type, bool(obj.locals[0].requires_grad)),
+    )
+
+
+def _restore_sharded(hosts, indices, slot_to_host, shape, dtype, axis_names, mesh_shape, spec, kind,
+                     requires_grad):
+    """Reassembles a ShardedTensor shard by shard onto an equivalent mesh
+    (same axis names and shape) of this process's ``devices()`` of the
+    sender's kind: one copy (CPU) or one H2D copy (CUDA) per unique shard
+    and device, slots of one device sharing a replicated block. A shard
+    that lived on a CUDA device never lands on the CPU: with too few cards
+    this raises ``DeviceUnavailableError`` (CPU slots are always enough)."""
+    import math
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import Mesh, devices
+    from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec, ShardedTensor
+
+    n = math.prod(mesh_shape)
+    devs = devices("cpu" if kind == "cpu" else None)
+    if len(devs) < n:
+        if kind != "cpu":
+            raise DeviceUnavailableError(
+                f"a tensor sharded over {n} slots of {kind} was restored in a process with {len(devs)}")
+        devs = [torch.device("cpu")] * n
+    arr = np.empty(n, dtype=object)
+    arr[:] = list(devs[:n])
+    mesh = Mesh(arr.reshape(mesh_shape), axis_names)
+    dt = getattr(torch, dtype)
+    made: dict = {}
+    locals_ = []
+    for s, k in enumerate(slot_to_host):
+        dev = arr[s]
+        key = (k, str(dev))
+        if key not in made:
+            shp = tuple(hi - lo for lo, hi in indices[k])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # a read-only view, copied below
+                raw = torch.frombuffer(hosts[k], dtype=torch.uint8) if memoryview(hosts[k]).nbytes else \
+                    torch.empty(0, dtype=torch.uint8)
+            t = (raw.clone() if dev.type == "cpu" else raw.to(dev)).view(dt).reshape(shp)
+            made[key] = t.requires_grad_(requires_grad) if requires_grad else t
+        locals_.append(made[key])
+    return ShardedTensor(locals_, NamedSharding(mesh, PartitionSpec(*spec)), shape)
+
+
 class _RefAwarePickler(cloudpickle.CloudPickler):
     def __init__(self, file, protocol=_PROTOCOL, buffer_callback=None):
         super().__init__(file, protocol=protocol, buffer_callback=buffer_callback)
@@ -133,6 +205,10 @@ class _RefAwarePickler(cloudpickle.CloudPickler):
             rv = _reduce_tensor(obj)
             if rv is not None:
                 return rv
+        # A sharded tensor ships one buffer per unique shard (the TP weight
+        # handoff through the object store): _reduce_sharded / _restore_sharded.
+        if type(obj).__name__ == "ShardedTensor" and type(obj).__module__ == "ray_tpu_torch.parallel.sharding":
+            return _reduce_sharded(obj)
         # Delegate to CloudPickler's override — that's where by-value
         # pickling of local functions/classes lives; returning
         # NotImplemented here would silently drop it.

@@ -356,7 +356,8 @@ def build_llm_app(model_config: dict, engine_config: Optional[dict] = None,
     the replica count then floats between min/max, driven by the scale
     plane's demand + QoS signals (ray_tpu_torch/scale/) instead of
     num_replicas. ray_actor_options={"num_gpus": f} gives each replica a
-    share f of a card. device: passed on to each replica's LLMServer (None
+    share f of a card; with tensor_parallel > 1 a replica demands that many
+    GPUs unless num_gpus says otherwise. device: passed on to each replica's LLMServer (None
     is the GPU, raising in the replica when none is visible)."""
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm.engine import EngineConfig
@@ -364,14 +365,17 @@ def build_llm_app(model_config: dict, engine_config: Optional[dict] = None,
     ec = EngineConfig(**(engine_config or {}))
     if isinstance(autoscaling_config, dict):
         autoscaling_config = serve.AutoscalingConfig(**autoscaling_config)
+    aopts = dict(ray_actor_options or {})
     if ec.tensor_parallel > 1:
-        raise NotImplementedError(
-            "tensor_parallel > 1 needs the mesh (ROADMAP.md, Queue 1 item 6)")
+        # Tensor-parallel replica: gang-schedule it onto a node with that
+        # many GPUs (the reference demands {"TPU": tp}); its engine builds
+        # its mesh over the cards (or slots) the replica's process sees.
+        aopts.setdefault("num_gpus", float(ec.tensor_parallel))
     dep = serve.deployment(LLMServer).options(
         name="llm",
         num_replicas=num_replicas,
         max_ongoing_requests=max_ongoing_requests or ec.max_slots,
-        ray_actor_options=dict(ray_actor_options or {}),
+        ray_actor_options=aopts,
         autoscaling_config=autoscaling_config,
     )
     return dep.bind(model_config, engine_config, warmup_buckets, params, weights_channel,

@@ -43,7 +43,20 @@ empty slots, whose lengths are zeroed so nothing ever reads what they wrote.
 Device indices that the JAX code clamped implicitly (an empty slot's length
 keeps advancing inside a block) are clamped explicitly here.
 
-Not in this slice (raises ``NotImplementedError``): tensor-parallel serving.
+- Tensor-parallel serving (``EngineConfig.tensor_parallel`` > 1, as in the
+  JAX engine): a ``tensor`` mesh over the first tp slots of
+  ``ray_tpu_torch.parallel.devices()``, the parameters split Megatron-style
+  by ``ShardingStrategy.tp()`` (each leaf placed shard by shard as it is
+  drawn or loaded, never whole on one device), the KV pools split by
+  kv_heads ([L, KV/tp, P*ps, Hd] or [L, B, S, KV/tp, Hd] per slot), the page
+  tables, lengths and sampling state replicated, so the host scheduler does
+  not change. Each layer runs in phases over the slots: each slot's
+  projections and attention on its own heads (K1 per slot in prefill, K4 per
+  slot in decode through ``paged_attention``'s ``mesh`` branch), then the
+  row-parallel partial sums after ``wo`` and ``w_down`` added in fp32 in slot
+  order (psum); the embedding is a masked lookup per vocab shard plus a
+  psum, and the logits are gathered over the vocabulary for the sampler.
+  Slots may share one card: that checks the sharded path, not a speed-up.
 """
 from __future__ import annotations
 
@@ -58,21 +71,26 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.llm.sampling import SamplingParams, sample_batch
+from ray_tpu_torch.models.sharded import add_psum, vocab_lookup
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     attn_proj,
     cast_params,
     dense_ffn,
     init_params,
+    iter_init_params,
     layer_params,
     linear,
     out_proj,
+    param_logical_axes,
     resolve_device,
     rms_norm,
     rope,
+    tree_from_leaves,
 )
 from ray_tpu_torch.ops.attention import check_head_dim, flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
+from ray_tpu_torch.parallel._shard_map import per_slot as _per_slot
 from ray_tpu_torch.util.tracing import child_span
 
 
@@ -103,7 +121,10 @@ class EngineConfig:
     # Candidate cap for truncated (top-k/top-p) sampling rows; see
     # sampling.TOPK_CAP for the nucleus-width caveat.
     sample_topk_cap: int = 128
-    # Not in this slice of the port (raises NotImplementedError when > 1).
+    # Tensor-parallel serving degree: > 1 shards the model and the KV cache
+    # over a `tensor` mesh of that many slots (ray_tpu_torch.parallel.devices:
+    # the visible cards, or the slots RAY_TPU_TORCH_DEVICE_SLOTS makes). Needs
+    # n_heads, kv_heads, d_ff and vocab_size divisible by the degree.
     tensor_parallel: int = 1
     # Chunked prefill (paged layout only): a prompt whose un-cached span
     # exceeds this many tokens prefills in page-aligned chunks of this size,
@@ -140,44 +161,23 @@ class _Slot:
     prompt_len: int = 0
 
 
-def _prefill_layer(x, lp, cfg: TransformerConfig, positions, seg):
-    """Causal layer over the (padded) prompts; returns the new K/V for the
-    cache. seg masks pad columns (pad tokens are their own segment)."""
-    h = rms_norm(x, lp["attn_norm"])
-    q, k, v = attn_proj(h, lp)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True, segment_ids=seg)
-    x = x + out_proj(o, lp["wo"])
-    h = rms_norm(x, lp["ffn_norm"])
-    return x + dense_ffn(h, lp), k, v
-
-
-def _decode_layer_dense(x, lp, ck, cv, cfg: TransformerConfig, lengths):
-    """Dense-layout one-token step against a [B, S, KV, Hd] cache slice,
-    which it updates in place: plain einsum attention."""
-    dt = x.dtype
-    B = x.shape[0]
-    S, KV, Hd = ck.shape[1], ck.shape[2], ck.shape[3]
-    group = cfg.n_heads // cfg.kv_heads
-    h = rms_norm(x, lp["attn_norm"])
-    q, k_new, v_new = attn_proj(h, lp)  # q: [B,1,H,Hd]  k/v: [B,1,KV,Hd]
-    pos = lengths[:, None]
-    q = rope(q, pos, cfg.rope_theta)
-    k_new = rope(k_new, pos, cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
+def _dense_attend(q, k_new, v_new, ck, cv, lengths):
+    """Dense-layout one-token attention of one slot: writes k/v [B,1,KV,Hd]
+    at each row's length into its [B, S, KV, Hd] cache slice (in place),
+    then einsum attention over the valid prefix -> o [B, 1, H, Hd]."""
+    dt = q.dtype
+    B, H, Hd = q.shape[0], q.shape[2], q.shape[3]
+    S, KV = ck.shape[1], ck.shape[2]
+    rows = torch.arange(B, device=q.device)
     at = lengths.long().clamp(max=S - 1)  # only an empty slot's length can pass S - 1
     ck[rows, at] = k_new[:, 0]
     cv[rows, at] = v_new[:, 0]
-    qg = q[:, 0].reshape(B, KV, group, Hd)
+    qg = q[:, 0].reshape(B, KV, H // KV, Hd)
     scores = torch.einsum("bkgh,bskh->bkgs", qg, ck).float() / math.sqrt(Hd)
-    valid = (torch.arange(S, device=x.device)[None, :] <= lengths[:, None])[:, None, None, :]
+    valid = (torch.arange(S, device=q.device)[None, :] <= lengths[:, None])[:, None, None, :]
     scores = scores.masked_fill(~valid, -1e30)
     p = torch.softmax(scores, dim=-1).to(dt)
-    o = torch.einsum("bkgs,bskh->bkgh", p, cv).reshape(B, 1, cfg.n_heads, Hd)
-    x = x + out_proj(o, lp["wo"])
-    h = rms_norm(x, lp["ffn_norm"])
-    return x + dense_ffn(h, lp)
+    return torch.einsum("bkgs,bskh->bkgh", p, cv).reshape(B, 1, H, Hd)
 
 
 class LLMEngine:
@@ -194,10 +194,27 @@ class LLMEngine:
         if cfg.n_experts:
             raise ValueError("MoE serving not supported yet (dense decode path only)")
         check_head_dim(cfg.head_dim, self.device)  # prefill runs K1 on the card
-        if self.ec.tensor_parallel > 1:
-            raise NotImplementedError(
-                "tensor_parallel > 1 is not ported yet (ROADMAP Queue 1 item 6: parallelism and "
-                "tensor-parallel serving)")
+        # Tensor-parallel mesh: params shard Megatron-style, KV pools shard by
+        # kv_heads; everything else (page tables, lengths, sampling state) is
+        # replicated on the first slot's device, so the host scheduler below
+        # is layout-oblivious.
+        tp = self.ec.tensor_parallel
+        self.mesh = None
+        if tp > 1:
+            from ray_tpu_torch.parallel.mesh import MeshSpec, devices
+
+            devs = devices("cpu" if self.device.type == "cpu" else None)
+            if len(devs) < tp:
+                raise ValueError(
+                    f"tensor_parallel={tp} but only {len(devs)} devices visible "
+                    "(gang-schedule the replica with that many GPUs)")
+            for dim_name, dim in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads),
+                                  ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+                if dim % tp:
+                    raise ValueError(f"{dim_name}={dim} not divisible by tensor_parallel={tp}")
+            self.mesh = MeshSpec(tensor=tp).build(devs[:tp])
+            self.device = devs[0]
+        self.slot_devices = self.mesh.slot_devices if self.mesh is not None else [self.device]
         if self.ec.max_seq <= 0:
             self.ec = dataclasses.replace(self.ec, max_seq=cfg.max_seq_len)
         S = self.ec.max_seq
@@ -228,7 +245,14 @@ class LLMEngine:
             self.ec = dataclasses.replace(self.ec, total_pages=self.ec.max_slots * (S // ps) + 1)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.ec.seed)
-            params = init_params(cfg, gen, self.device)
+            if self.mesh is not None:
+                # Init directly sharded: each leaf is split as it is drawn
+                # (the draws of init_params, in its order), so the whole tree
+                # never sits on one device.
+                params = tree_from_leaves((path, self._place(path, leaf))
+                                          for path, leaf in iter_init_params(cfg, gen, self.device))
+            else:
+                params = init_params(cfg, gen, self.device)
         self.set_params(params)
         del params  # a tree drawn here is fp32: free it before the KV pool is allocated
         L = cfg.n_layers
@@ -238,21 +262,34 @@ class LLMEngine:
         def _zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        tp = self.ec.tensor_parallel
+        KVl = cfg.kv_heads // tp
         if self.paged:
             P_total = self.ec.total_pages
             self.ppseq = S // ps  # page-table width (max pages per sequence)
             # Linear page pool: position (page, offset) lives at page*ps + offset.
-            pool_shape = (L, cfg.kv_heads, P_total * ps, cfg.head_dim)
-            self.k_pages = _zeros(pool_shape, cfg.dtype)
-            self.v_pages = _zeros(pool_shape, cfg.dtype)
+            pool_shape = (L, KVl, P_total * ps, cfg.head_dim)
+            kv_dim = 1
             self.free_pages: deque = deque(range(1, P_total))  # page 0 = dead sink
         else:
             # Dense per-slot cache (one virtual page of max_seq per slot).
             self.ppseq = 1
-            dense_shape = (L, B, S, cfg.kv_heads, cfg.head_dim)
-            self.k_pages = _zeros(dense_shape, cfg.dtype)
-            self.v_pages = _zeros(dense_shape, cfg.dtype)
+            pool_shape = (L, B, S, KVl, cfg.head_dim)
+            kv_dim = 3
             self.free_pages = deque()
+        # One pool per slot, each its own allocation on its slot's device.
+        self._kp = [torch.zeros(pool_shape, dtype=cfg.dtype, device=d) for d in self.slot_devices]
+        self._vp = [torch.zeros(pool_shape, dtype=cfg.dtype, device=d) for d in self.slot_devices]
+        if self.mesh is None:
+            self.k_pages, self.v_pages = self._kp[0], self._vp[0]
+        else:
+            from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec, ShardedTensor
+
+            spec = PartitionSpec(*(["tensor" if d == kv_dim else None for d in range(len(pool_shape))]))
+            full = list(pool_shape)
+            full[kv_dim] = cfg.kv_heads
+            self.k_pages = ShardedTensor(self._kp, NamedSharding(self.mesh, spec), full)
+            self.v_pages = ShardedTensor(self._vp, NamedSharding(self.mesh, spec), full)
         self.page_tables = np.zeros((B, self.ppseq), np.int32)
         self.d_page_tables = _zeros((B, self.ppseq), torch.int32)
         self.lengths = np.zeros(B, np.int32)  # host copy drives scheduling
@@ -309,10 +346,49 @@ class LLMEngine:
 
     def set_params(self, params) -> None:
         """Swaps in new weights (same tree layout), cast once to the
-        activation dtype on this engine's device. The caller must exclude
-        step() for the duration; the KV cache is kept."""
-        self.params = cast_params(params, self.cfg.dtype, self.device)
-        self._layers = [layer_params(self.params, i) for i in range(self.cfg.n_layers)]
+        activation dtype on this engine's device, or, under tensor
+        parallelism, resharded onto the engine's layout (a tree of
+        ShardedTensors, or of plain tensors split shard by shard). The caller
+        must exclude step() for the duration; the KV cache is kept."""
+        from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+        if self.mesh is None:
+            def whole(t):
+                return t.full() if isinstance(t, ShardedTensor) else t
+
+            params = {k: ({n: whole(t) for n, t in v.items()} if k == "layers" else whole(v))
+                      for k, v in params.items()}
+            self.params = cast_params(params, self.cfg.dtype, self.device)
+            self._sp = [self.params]
+        else:
+            self.params = {
+                "embed": self._place(("embed",), params["embed"]),
+                "layers": {n: self._place(("layers", n), t) for n, t in params["layers"].items()},
+                "final_norm": self._place(("final_norm",), params["final_norm"]),
+                "lm_head": self._place(("lm_head",), params["lm_head"]),
+            }
+            self._sp = [{"embed": self.params["embed"].locals[s],
+                         "layers": {n: t.locals[s] for n, t in self.params["layers"].items()},
+                         "final_norm": self.params["final_norm"].locals[s],
+                         "lm_head": self.params["lm_head"].locals[s]} for s in range(self.mesh.size)]
+        # Per slot, per layer: the layer's parameter views. Slots holding the
+        # same (replicated) tensors share them, so their work runs once.
+        self._sl = [[layer_params(sp, i) for i in range(self.cfg.n_layers)] for sp in self._sp]
+        self._layers = self._sl[0]
+
+    def _place(self, path: tuple, leaf):
+        """One parameter leaf on the tensor-parallel layout, in the
+        activation dtype: each slot's block its own tensor (split from a
+        plain tensor block by block, resharded from a ShardedTensor of an
+        equivalent mesh, gathered from any other)."""
+        from ray_tpu_torch.parallel.sharding import ShardedTensor, ShardingStrategy, device_put
+
+        axes = param_logical_axes(self.cfg)
+        for k in path:
+            axes = axes[k]
+        if isinstance(leaf, ShardedTensor) and leaf.mesh != self.mesh:
+            leaf = leaf.full()
+        return device_put(leaf.detach(), ShardingStrategy.tp().sharding(self.mesh, axes), dtype=self.cfg.dtype)
 
     # -- page accounting ---------------------------------------------------
     def _pages_needed(self, prompt_len: int, max_tokens: int) -> int:
@@ -354,6 +430,73 @@ class LLMEngine:
             return logits.argmax(dim=-1).to(torch.int32)
         return sample_batch(logits, temps, top_ps, top_ks, gen, cap=self.ec.sample_topk_cap)
 
+    # -- per-slot phases (one slot unless tensor-parallel) ------------------
+    def _rep(self, t) -> list:
+        """``t`` (on the first slot's device) at every slot: one object per
+        device."""
+        return [t.to(d) for d in self.slot_devices]
+
+    def _residual(self, xs, parts) -> list:
+        """x + the row-parallel partials summed over the slots (fp32, in slot
+        order); one slot adds its own."""
+        return add_psum(xs, parts, "tensor" if self.mesh is not None else (), self.mesh)
+
+    def _embed(self, tok) -> list:
+        """Token ids -> the residual stream at every slot. Tensor-parallel:
+        each slot looks up the ids of its vocab block (zero elsewhere), then
+        the psum."""
+        if self.mesh is None:
+            return [self.params["embed"][tok]]
+        tables = [sp["embed"] for sp in self._sp]
+        v0s = [s * t.shape[0] for s, t in enumerate(tables)]
+        return vocab_lookup(tables, self._rep(tok), v0s, "tensor", self.mesh, self.cfg.dtype)
+
+    def _attn_in(self, xs, li, poss):
+        """Each slot's q, k, v on its own heads, rotated at positions ``poss``."""
+        cfg = self.cfg
+        lps = [sl[li] for sl in self._sl]
+        h = _per_slot(lambda x, lp: rms_norm(x, lp["attn_norm"]), xs, lps)
+        qkv = [attn_proj(hh, lp) for hh, lp in zip(h, lps)]
+        qs = [rope(t[0], p, cfg.rope_theta) for t, p in zip(qkv, poss)]
+        ks = [rope(t[1], p, cfg.rope_theta) for t, p in zip(qkv, poss)]
+        return qs, ks, [t[2] for t in qkv]
+
+    def _attn_out_ffn(self, xs, li, os) -> list:
+        """The rest of layer li from the attention outputs ``os``
+        [..., H/tp, Hd]: out projection (psum), FFN (psum)."""
+        lps = [sl[li] for sl in self._sl]
+        xs = self._residual(xs, [out_proj(o, lp["wo"]) for o, lp in zip(os, lps)])
+        h = _per_slot(lambda x, lp: rms_norm(x, lp["ffn_norm"]), xs, lps)
+        return self._residual(xs, [dense_ffn(hh, lp) for hh, lp in zip(h, lps)])
+
+    def _head(self, xs, pick, pick_first=True):
+        """Final norm and the fp32 logits of the positions ``pick`` selects,
+        gathered over the vocab shards on the first slot's device."""
+        def norm_pick(x, w):
+            return rms_norm(pick(x), w) if pick_first else pick(rms_norm(x, w))
+
+        hs = _per_slot(norm_pick, xs, [sp["final_norm"] for sp in self._sp])
+        parts = [linear(h, sp["lm_head"]).float() for h, sp in zip(hs, self._sp)]
+        return parts[0] if len(parts) == 1 else torch.cat([p.to(self.device) for p in parts], dim=-1)
+
+    def _paged_attention(self, qs, li, lens, page_tables):
+        """K4 per slot (the op's ``mesh`` branch under tensor parallelism)
+        over each slot's own pool at layer li -> per-slot o [B, H/tp, Hd]."""
+        ps = self.ec.page_size
+        Hd = self.cfg.head_dim
+        kps = [kp[li].view(kp.shape[1], -1, ps, Hd) for kp in self._kp]
+        vps = [vp[li].view(vp.shape[1], -1, ps, Hd) for vp in self._vp]
+        q1 = [q[:, 0] for q in qs]
+        if self.mesh is None:
+            return [paged_attention(q1[0], kps[0], vps[0], lens, page_tables)]
+        from ray_tpu_torch.parallel.sharding import PartitionSpec as P
+        from ray_tpu_torch.parallel.sharding import from_locals
+
+        pool = P("tensor", None, None, None)
+        o = paged_attention(from_locals(q1, self.mesh, P(None, "tensor", None)), from_locals(kps, self.mesh, pool),
+                            from_locals(vps, self.mesh, pool), lens, page_tables, mesh=self.mesh)
+        return o.locals
+
     def _prefill_logits(self, tokens, lengths, third):
         """k prompts of one length bucket as one batch: writes their K/V
         into the cache and returns the last real position's logits [k, V]
@@ -362,28 +505,29 @@ class LLMEngine:
         trailing entries 0 = dead sink) or slot ids [k] (dense)."""
         cfg = self.cfg
         k, P = tokens.shape
-        KV, Hd = cfg.kv_heads, cfg.head_dim
+        Hd = cfg.head_dim
         tok = self._tensor(tokens, torch.long)
         lens = self._tensor(lengths, torch.long)
-        x = self.params["embed"][tok]  # [k, P, D]
+        xs = self._embed(tok)  # [k, P, D] per slot
         pos = torch.arange(P, dtype=torch.int32, device=self.device).expand(k, P)
         seg = (pos >= lens[:, None]).to(torch.int32)  # pads = their own segment
-        if self.paged:
-            lin = self._pool_rows(third)  # [k * P] pool rows, page chunk by page chunk
-        else:
-            slots = self._tensor(third, torch.long)
-        for li, lp in enumerate(self._layers):
-            x, k_new, v_new = _prefill_layer(x, lp, cfg, pos, seg)
-            if self.paged:
-                # [k, P, KV, Hd] -> [KV, k * P, Hd]; scatter page chunks into the pool.
-                self.k_pages[li].index_copy_(1, lin, k_new.permute(2, 0, 1, 3).reshape(KV, k * P, Hd))
-                self.v_pages[li].index_copy_(1, lin, v_new.permute(2, 0, 1, 3).reshape(KV, k * P, Hd))
-            else:
-                self.k_pages[li][slots, :P] = k_new
-                self.v_pages[li][slots, :P] = v_new
-        last = x[torch.arange(k, device=self.device), lens - 1]  # [k, D]
-        last = rms_norm(last, self.params["final_norm"])
-        return linear(last, self.params["lm_head"]).float()
+        poss, segs = self._rep(pos), self._rep(seg)
+        # Paged: [k * P] pool rows, page chunk by page chunk; dense: slot ids.
+        places = self._rep(self._pool_rows(third) if self.paged else self._tensor(third, torch.long))
+        for li in range(cfg.n_layers):
+            qs, ks, vs = self._attn_in(xs, li, poss)
+            os = [flash_attention(q, kk, v, causal=True, segment_ids=sg) for q, kk, v, sg in zip(qs, ks, vs, segs)]
+            for s, (kk, v) in enumerate(zip(ks, vs)):
+                KVl = kk.shape[2]
+                if self.paged:
+                    # [k, P, KV, Hd] -> [KV, k * P, Hd]; scatter page chunks into the pool.
+                    self._kp[s][li].index_copy_(1, places[s], kk.permute(2, 0, 1, 3).reshape(KVl, k * P, Hd))
+                    self._vp[s][li].index_copy_(1, places[s], v.permute(2, 0, 1, 3).reshape(KVl, k * P, Hd))
+                else:
+                    self._kp[s][li][places[s], :P] = kk
+                    self._vp[s][li][places[s], :P] = v
+            xs = self._attn_out_ffn(xs, li, os)
+        return self._head(xs, lambda x: x[torch.arange(k, device=x.device), lens.to(x.device) - 1])
 
     def _prefill_batch_impl(self, tokens, lengths, third, gen, idxs):
         """Prefill one group and sample each request's first token -> [k]
@@ -400,13 +544,15 @@ class LLMEngine:
         return self._tensor((np.asarray(pages, np.int64)[..., None] * ps + np.arange(ps)).reshape(-1))
 
     def _copy_pages(self, src_pages, dst_pages) -> None:
-        """Copies whole pages src -> dst, K and V, across all layers at once.
-        Everything runs on one stream, so the copy is enqueued before any
-        later write to either page set and reads their bytes as they stand
-        now, even when the source pages are recycled by the next admission."""
+        """Copies whole pages src -> dst, K and V, across all layers at once
+        (every slot's pool: the copy slices the token axis, the sharded KV
+        heads ride along). Everything runs on one stream per device, so the
+        copy is enqueued before any later write to either page set and reads
+        their bytes as they stand now, even when the source pages are
+        recycled by the next admission."""
         src, dst = self._pool_rows(src_pages), self._pool_rows(dst_pages)
-        for pool in (self.k_pages, self.v_pages):  # [L, KV, P_total * ps, Hd]
-            pool.index_copy_(2, dst, pool.index_select(2, src))
+        for pool in self._kp + self._vp:  # [L, KV/tp, P_total * ps, Hd]
+            pool.index_copy_(2, dst.to(pool.device), pool.index_select(2, src.to(pool.device)))
 
     def _tail_prefill_logits(self, tokens, start, length, ctx_pages, tail_pages):
         """Prefill over a cached prefix: the prompt's first ``start`` tokens
@@ -422,10 +568,10 @@ class LLMEngine:
         cfg = self.cfg
         ps = self.ec.page_size
         Tb, C = len(tokens), len(ctx_pages)
-        KV, Hd = cfg.kv_heads, cfg.head_dim
-        group = cfg.n_heads // KV
+        Hd = cfg.head_dim
+        group = cfg.n_heads // cfg.kv_heads
         dev = self.device
-        x = self.params["embed"][self._tensor(tokens, torch.long)][None]  # [1, Tb, D]
+        xs = self._embed(self._tensor(tokens, torch.long)[None])  # [1, Tb, D] per slot
         tpos = torch.arange(Tb, device=dev)
         pos = (start + tpos)[None]  # [1, Tb] absolute positions
         # Key validity [Tb, C*ps + Tb]: context keys below start (always at or
@@ -434,28 +580,26 @@ class LLMEngine:
         ctx_valid = (torch.arange(C * ps, device=dev) < start)[None, :].expand(Tb, C * ps)
         tail_valid = (tpos[None, :] <= tpos[:, None]) & ((start + tpos)[None, :] < length)
         mask = torch.cat([ctx_valid, tail_valid], dim=1)[:, None, None, :]
-        ctx_rows, tail_rows = self._pool_rows(ctx_pages), self._pool_rows(tail_pages)
-        for li, lp in enumerate(self._layers):
-            h = rms_norm(x, lp["attn_norm"])
-            q, k, v = attn_proj(h, lp)
-            q = rope(q, pos, cfg.rope_theta)
-            k = rope(k, pos, cfg.rope_theta)
-            kt, vt = k[0].transpose(0, 1), v[0].transpose(0, 1)  # [KV, Tb, Hd]
-            kp, vp = self.k_pages[li], self.v_pages[li]  # [KV, P_total * ps, Hd]
-            kp.index_copy_(1, tail_rows, kt)
-            vp.index_copy_(1, tail_rows, vt)
-            kall = torch.cat([kp.index_select(1, ctx_rows), kt], dim=1)  # [KV, C*ps + Tb, Hd]
-            vall = torch.cat([vp.index_select(1, ctx_rows), vt], dim=1)
-            qg = q[0].reshape(Tb, KV, group, Hd)
-            scores = torch.einsum("tkgh,ksh->tkgs", qg, kall).float() / math.sqrt(Hd)
-            scores = scores.masked_fill(~mask, -1e30)
-            p = torch.softmax(scores, dim=-1).to(x.dtype)
-            o = torch.einsum("tkgs,ksh->tkgh", p, vall).reshape(1, Tb, cfg.n_heads, Hd)
-            x = x + out_proj(o, lp["wo"])
-            h = rms_norm(x, lp["ffn_norm"])
-            x = x + dense_ffn(h, lp)
-        last = rms_norm(x[:, length - 1 - start], self.params["final_norm"])  # [1, D]
-        return linear(last, self.params["lm_head"]).float()
+        poss, masks = self._rep(pos), self._rep(mask)
+        ctx_rows, tail_rows = self._rep(self._pool_rows(ctx_pages)), self._rep(self._pool_rows(tail_pages))
+        for li in range(cfg.n_layers):
+            qs, ks, vs = self._attn_in(xs, li, poss)
+            os = []
+            for s, (q, k, v) in enumerate(zip(qs, ks, vs)):
+                KVl, Hl = k.shape[2], q.shape[2]
+                kt, vt = k[0].transpose(0, 1), v[0].transpose(0, 1)  # [KV, Tb, Hd]
+                kp, vp = self._kp[s][li], self._vp[s][li]  # [KV, P_total * ps, Hd]
+                kp.index_copy_(1, tail_rows[s], kt)
+                vp.index_copy_(1, tail_rows[s], vt)
+                kall = torch.cat([kp.index_select(1, ctx_rows[s]), kt], dim=1)  # [KV, C*ps + Tb, Hd]
+                vall = torch.cat([vp.index_select(1, ctx_rows[s]), vt], dim=1)
+                qg = q[0].reshape(Tb, KVl, group, Hd)
+                scores = torch.einsum("tkgh,ksh->tkgs", qg, kall).float() / math.sqrt(Hd)
+                scores = scores.masked_fill(~masks[s], -1e30)
+                p = torch.softmax(scores, dim=-1).to(q.dtype)
+                os.append(torch.einsum("tkgs,ksh->tkgh", p, vall).reshape(1, Tb, Hl, Hd))
+            xs = self._attn_out_ffn(xs, li, os)
+        return self._head(xs, lambda x: x[:, length - 1 - start])  # [1, V]
 
     def _tail_args(self, row, tokens, start, n_tok):
         """Tail prefill inputs for tokens[start:start + n_tok] of a request
@@ -492,35 +636,26 @@ class LLMEngine:
         (toks [n_steps, B], last', lengths'), all on the device."""
         cfg = self.cfg
         ps = self.ec.page_size
-        KV, Hd = cfg.kv_heads, cfg.head_dim
         B = page_tables.shape[0]
         rows = torch.arange(B, device=self.device)
         last, lens = last_tokens, lengths
         out = []
         for _ in range(n_steps):
-            x = self.params["embed"][last.long()][:, None, :]  # [B, 1, D]
+            xs = self._embed(last.long()[:, None])  # [B, 1, D] per slot
             # Linear write position per slot: its page for len, plus offset.
             # (An empty slot's length may run past the table; its row is all
             # page 0, so the clamp only keeps the index in range.)
             col = (lens // ps).clamp(max=self.ppseq - 1).long()
-            lin = (page_tables[rows, col] * ps + lens % ps).long()  # [B]
-            pos = lens[:, None]
-            for li, lp in enumerate(self._layers):
-                hh = rms_norm(x, lp["attn_norm"])
-                q, k_new, v_new = attn_proj(hh, lp)
-                q = rope(q, pos, cfg.rope_theta)
-                k_new = rope(k_new, pos, cfg.rope_theta)
-                kp, vp = self.k_pages[li], self.v_pages[li]  # [KV, P_total * ps, Hd]
-                kp[:, lin] = k_new[:, 0].transpose(0, 1)  # [KV, B, Hd]
-                vp[:, lin] = v_new[:, 0].transpose(0, 1)
-                o = paged_attention(
-                    q[:, 0], kp.view(KV, -1, ps, Hd), vp.view(KV, -1, ps, Hd), lens + 1, page_tables,
-                )  # [B, H, Hd]
-                x = x + out_proj(o, lp["wo"])[:, None, :]
-                hh = rms_norm(x, lp["ffn_norm"])
-                x = x + dense_ffn(hh, lp)
-            x = rms_norm(x, self.params["final_norm"])
-            logits = linear(x[:, 0], self.params["lm_head"]).float()
+            lins = self._rep((page_tables[rows, col] * ps + lens % ps).long())  # [B]
+            poss = self._rep(lens[:, None])
+            for li in range(cfg.n_layers):
+                qs, ks, vs = self._attn_in(xs, li, poss)
+                for s, (k_new, v_new) in enumerate(zip(ks, vs)):
+                    self._kp[s][li][:, lins[s]] = k_new[:, 0].transpose(0, 1)  # [KV, B, Hd]
+                    self._vp[s][li][:, lins[s]] = v_new[:, 0].transpose(0, 1)
+                os = self._paged_attention(qs, li, lens + 1, page_tables)  # [B, H, Hd] per slot
+                xs = self._attn_out_ffn(xs, li, [o[:, None] for o in os])
+            logits = self._head(xs, lambda x: x[:, 0], pick_first=False)
             last = self._sample(logits, temps, top_ps, top_ks, gen, self.samp_temps)
             lens = lens + 1
             out.append(last)
@@ -529,14 +664,19 @@ class LLMEngine:
     def _decode_impl_dense(self, last_tokens, lengths, n_steps, gen, temps, top_ps, top_ks):
         """Dense layout: n_steps for every slot; attention is the einsum over
         each slot's contiguous [S] row."""
+        cfg = self.cfg
         last, lens = last_tokens, lengths
         out = []
         for _ in range(n_steps):
-            x = self.params["embed"][last.long()][:, None, :]  # [B, 1, D]
-            for li, lp in enumerate(self._layers):
-                x = _decode_layer_dense(x, lp, self.k_pages[li], self.v_pages[li], self.cfg, lens)
-            x = rms_norm(x, self.params["final_norm"])
-            logits = linear(x[:, 0], self.params["lm_head"]).float()
+            xs = self._embed(last.long()[:, None])  # [B, 1, D] per slot
+            lenss = self._rep(lens)
+            poss = self._rep(lens[:, None])
+            for li in range(cfg.n_layers):
+                qs, ks, vs = self._attn_in(xs, li, poss)
+                os = [_dense_attend(q, k, v, self._kp[s][li], self._vp[s][li], lenss[s])
+                      for s, (q, k, v) in enumerate(zip(qs, ks, vs))]
+                xs = self._attn_out_ffn(xs, li, os)
+            logits = self._head(xs, lambda x: x[:, 0], pick_first=False)
             last = self._sample(logits, temps, top_ps, top_ks, gen, self.samp_temps)
             lens = lens + 1
             out.append(last)

@@ -467,7 +467,8 @@ def build_openai_app(model_config: dict, engine_config: Optional[dict] = None,
     installs the prefix-affinity router policy in the proxy (pair with
     engine_config={"kv_layout": "paged", "prefix_cache": True} so the sticky
     replica actually reuses the pages). ray_actor_options={"num_gpus": f}
-    gives each replica a share f of a card. device: passed on to each
+    gives each replica a share f of a card (tensor_parallel > 1: tp GPUs
+    unless num_gpus says otherwise). device: passed on to each
     replica's OpenAIServer (None is the GPU, raising in the replica when
     none is visible)."""
     from ray_tpu_torch import serve
@@ -475,14 +476,14 @@ def build_openai_app(model_config: dict, engine_config: Optional[dict] = None,
 
     ec = EngineConfig(**{k: v for k, v in (engine_config or {}).items()
                          if k in EngineConfig.__dataclass_fields__})
+    aopts = dict(ray_actor_options or {})
     if ec.tensor_parallel > 1:
-        raise NotImplementedError(
-            "tensor_parallel > 1 needs the mesh (ROADMAP.md, Queue 1 item 6)")
+        aopts.setdefault("num_gpus", float(ec.tensor_parallel))  # gang-schedule the TP replica
     dep = serve.deployment(OpenAIServer).options(
         name="openai_llm",
         num_replicas=num_replicas,
         max_ongoing_requests=max_ongoing_requests or ec.max_slots,
-        ray_actor_options=ray_actor_options or {},
+        ray_actor_options=aopts,
         # Router keys match the engine's page-granular cache: same
         # tokenizer, same page size -> the affinity key IS the engine's
         # first chain digest boundary.

@@ -19,10 +19,16 @@ dims), the materialised and the chunked cross-entropy, and
 ``attention_impl``: "auto" is the flash kernels (K1 forward, K3/K2
 backward) for CUDA tensors and the plain einsum version elsewhere, as the
 JAX code picks flash on the TPU; "splash" keeps the JAX splash wrapper's
-contract (causal, scale folded into q) on the same kernels. Not carried over: ``attention_block_q/k``
-(TPU tile sizes; the CUDA kernels have fixed 64-row tiles), and
-``state_logical_axes`` and ``make_pipeline_train_step``, which wait for the
-parallelism slice.
+contract (causal, scale folded into q) on the same kernels; "ring" and
+"ulysses" are the sequence-parallel attentions over the ``seq`` axis of a
+mesh (the dense reference off it). Not carried over: ``attention_block_q/k``
+(TPU tile sizes; the CUDA kernels have fixed 64-row tiles).
+
+Parallelism: ``param_logical_axes`` and ``state_logical_axes`` annotate the
+trees for ``ray_tpu_torch.parallel.shard_pytree``; a state placed that way
+trains through the same ``train_step``, which then computes per slot
+(``models/sharded.py``); ``make_pipeline_train_step`` runs the layer stack
+as a GPipe schedule over the ``stage`` axis.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ class TransformerConfig:
     # "dots" keeps the outputs of the matmuls without batch dims (the JAX
     # policy dots_with_no_batch_dims_saveable) and recomputes the rest.
     remat_policy: str = "full"
-    attention_impl: str = "auto"  # auto | flash | reference | splash (ring | ulysses: later slices)
+    attention_impl: str = "auto"  # auto | flash | reference | splash | ring | ulysses
     # Training loss over sequence chunks of this size, so the full [B, S, V]
     # logits never materialise (0 = off). Needs chunk | (S - 1).
     ce_chunk: int = 0
@@ -132,43 +138,91 @@ def _dense_init(gen, shape, fan_in, dtype, device):
     return torch.randn(shape, generator=gen, dtype=dtype, device=device) / math.sqrt(fan_in)
 
 
+def iter_init_params(cfg: TransformerConfig, generator: torch.Generator, device=None):
+    """``init_params``'s draws one leaf at a time, in its order: yields
+    (path, tensor), path ("layers", name) or (name,). A caller that places
+    each leaf as it comes (the tensor-parallel engine's shards) never holds
+    the whole tree on one device."""
+    device = resolve_device(device, "init_params")
+    pd = cfg.param_dtype
+    shapes = param_shapes(cfg)
+    ls = shapes["layers"]
+    D, F = cfg.d_model, cfg.d_ff
+    H, Hd = cfg.n_heads, cfg.head_dim
+
+    def dense(shape, fan_in):
+        return _dense_init(generator, shape, fan_in, pd, device)
+
+    yield ("layers", "attn_norm"), torch.ones(ls["attn_norm"], dtype=pd, device=device)
+    yield ("layers", "wq"), dense(ls["wq"], D)
+    yield ("layers", "wk"), dense(ls["wk"], D)
+    yield ("layers", "wv"), dense(ls["wv"], D)
+    yield ("layers", "wo"), dense(ls["wo"], H * Hd)
+    yield ("layers", "ffn_norm"), torch.ones(ls["ffn_norm"], dtype=pd, device=device)
+    if cfg.n_experts:
+        yield ("layers", "router"), dense(ls["router"], D)
+    yield ("layers", "w_gate"), dense(ls["w_gate"], D)
+    yield ("layers", "w_up"), dense(ls["w_up"], D)
+    yield ("layers", "w_down"), dense(ls["w_down"], F)
+    yield ("embed",), dense(shapes["embed"], cfg.vocab_size) * math.sqrt(D)
+    yield ("final_norm",), torch.ones(shapes["final_norm"], dtype=pd, device=device)
+    yield ("lm_head",), dense(shapes["lm_head"], D)
+
+
+def tree_from_leaves(items) -> dict:
+    """(path, leaf) pairs -> the nested tree, in the canonical key order."""
+    tree: dict = {"embed": None, "layers": {}, "final_norm": None, "lm_head": None}
+    for path, leaf in items:
+        if path[0] == "layers":
+            tree["layers"][path[1]] = leaf
+        else:
+            tree[path[0]] = leaf
+    order = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "router", "w_gate", "w_up", "w_down")
+    tree["layers"] = {k: tree["layers"][k] for k in order if k in tree["layers"]}
+    return tree
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> dict:
     """Stacked-layer parameter tree with the JAX tree's names, shapes and
     init scales (experts included when ``n_experts``), drawn from
     ``generator`` (which must live on ``device``). ``device=None`` means the
     GPU (it raises when none is visible); pass ``device="cpu"`` for the CPU.
     The values differ from ``ray_tpu``'s; parity tests convert weights."""
-    device = resolve_device(device, "init_params")
-    pd = cfg.param_dtype
-    shapes = param_shapes(cfg)
-    ls = shapes["layers"]
-    L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
-    H, Hd = cfg.n_heads, cfg.head_dim
+    return tree_from_leaves(iter_init_params(cfg, generator, device))
 
-    def dense(shape, fan_in):
-        return _dense_init(generator, shape, fan_in, pd, device)
 
-    layers = {
-        "attn_norm": torch.ones(ls["attn_norm"], dtype=pd, device=device),
-        "wq": dense(ls["wq"], D),
-        "wk": dense(ls["wk"], D),
-        "wv": dense(ls["wv"], D),
-        "wo": dense(ls["wo"], H * Hd),
-        "ffn_norm": torch.ones(ls["ffn_norm"], dtype=pd, device=device),
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """Same-structure tree of logical-axis tuples (see
+    ``ray_tpu_torch.parallel.LOGICAL_AXES``): the reference's tree."""
+    layer = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "ffn_norm": ("layers", "embed"),
     }
     if cfg.n_experts:
-        layers["router"] = dense(ls["router"], D)
-    layers.update({
-        "w_gate": dense(ls["w_gate"], D),
-        "w_up": dense(ls["w_up"], D),
-        "w_down": dense(ls["w_down"], F),
-    })
-    return {
-        "embed": dense(shapes["embed"], cfg.vocab_size) * math.sqrt(D),
-        "layers": layers,
-        "final_norm": torch.ones(shapes["final_norm"], dtype=pd, device=device),
-        "lm_head": dense(shapes["lm_head"], D),
-    }
+        layer.update({
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "experts", "embed", "expert_mlp"),
+            "w_up": ("layers", "experts", "embed", "expert_mlp"),
+            "w_down": ("layers", "experts", "expert_mlp", "embed"),
+        })
+    else:
+        layer.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    return {"embed": ("vocab", "embed"), "layers": layer, "final_norm": ("embed",), "lm_head": ("embed", "vocab")}
+
+
+def state_logical_axes(state: dict, cfg: TransformerConfig) -> dict:
+    """The train state's axes: the params' tree, AdamW's ``exp_avg`` and
+    ``exp_avg_sq`` mirroring it, and ``()`` for the step counts."""
+    p_axes = param_logical_axes(cfg)
+    return {"params": p_axes, "opt": {"exp_avg": p_axes, "exp_avg_sq": p_axes, "step": ()}, "step": ()}
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -256,10 +310,19 @@ def _attention(q, k, v, cfg: TransformerConfig, segment_ids=None):
         return mha_reference(q, k, v, causal=True, segment_ids=segment_ids)
     if impl == "splash":
         return splash_attention(q, k, v, causal=True, segment_ids=segment_ids)
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported yet (ROADMAP.md Queue 1 item 6: parallelism)")
-    raise ValueError(f"unknown attention_impl {impl!r} (auto|flash|reference|splash)")
+    if impl == "ring":
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "ring attention does not support segment_ids yet; use attention_impl='flash' (or "
+                "'reference') for packed sequences")
+        return ring_attention(q, k, v, axis_name="seq", causal=True)
+    if impl == "ulysses":
+        from ray_tpu_torch.ops.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, axis_name="seq", causal=True, segment_ids=segment_ids)
+    raise ValueError(f"unknown attention_impl {impl!r} (auto|flash|reference|splash|ring|ulysses)")
 
 
 def moe_ffn(x, p, cfg: TransformerConfig):
@@ -317,10 +380,11 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_save_matmuls)
 
 
-def _layer_body(cfg: TransformerConfig):
-    """The layer as the forward runs it: plain, or checkpointed per remat."""
+def _layer_body_fn(cfg: TransformerConfig, fn):
+    """``fn`` (a layer) as the forward runs it: plain, or checkpointed per
+    remat."""
     if not cfg.remat:
-        return _layer
+        return fn
     if cfg.remat_policy == "full":
         context_fn = noop_context_fn
     elif cfg.remat_policy == "dots":
@@ -328,11 +392,15 @@ def _layer_body(cfg: TransformerConfig):
     else:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full|dots)")
 
-    def body(x, lp, cfg, positions, segment_ids):
-        return checkpoint(_layer, x, lp, cfg, positions, segment_ids,
-                          use_reentrant=False, context_fn=context_fn)
+    def body(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
 
     return body
+
+
+def _layer_body(cfg: TransformerConfig):
+    """The layer as the forward runs it: plain, or checkpointed per remat."""
+    return _layer_body_fn(cfg, _layer)
 
 
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig, segment_ids=None, positions=None):
@@ -481,7 +549,14 @@ def make_train_step(cfg: TransformerConfig, optimizer=None):
     returns {"loss", "grad_norm", "step"}; grad_norm is the global L2 norm of
     the gradients before the update (``optax.global_norm``). Unlike the JAX
     step, which returns a new state, it updates the parameters and the
-    optimizer state in place."""
+    optimizer state in place.
+
+    A state placed by ``ray_tpu_torch.parallel.shard_pytree(state,
+    state_logical_axes(state, cfg), mesh, strategy)`` trains through the
+    same ``train_step``: it then computes per slot (``models/sharded.py``;
+    the activations laid out by the active ``use_strategy``, else by the
+    batch's sharding), AdamW steps the unique shards, and grad_norm counts
+    each unique shard once."""
     make_opt = optimizer or adamw
 
     def init_state(generator: torch.Generator, device=None):
@@ -494,6 +569,12 @@ def make_train_step(cfg: TransformerConfig, optimizer=None):
         return {"params": params, "opt": make_opt(leaves(params)), "step": 0}
 
     def train_step(state: dict, batch: dict) -> dict:
+        from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+        if isinstance(state["params"]["embed"], ShardedTensor):
+            from ray_tpu_torch.models.sharded import sharded_loss
+
+            return _apply(state, lambda p: sharded_loss(p, batch, cfg))
         opt = state["opt"]
         opt.zero_grad(set_to_none=True)
         loss = cross_entropy_loss(state["params"], batch, cfg)
@@ -505,6 +586,115 @@ def make_train_step(cfg: TransformerConfig, optimizer=None):
         return {"loss": loss.detach(), "grad_norm": grad_norm, "step": state["step"]}
 
     return init_state, train_step
+
+
+def _apply(state: dict, loss_fn) -> dict:
+    """One optimizer step on a loss over (possibly sharded) parameters:
+    AdamW on the unique shards, grad_norm over them, replicas on other
+    devices refreshed after the update."""
+    from ray_tpu_torch.models.sharded import global_norm, sync_replicas, unique_leaves
+
+    opt = state["opt"]
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(state["params"])
+    loss.backward()
+    grad_norm = global_norm(unique_leaves(state["params"]))
+    opt.step()
+    sync_replicas(state["params"])
+    state["step"] += 1
+    return {"loss": loss.detach(), "grad_norm": grad_norm, "step": state["step"]}
+
+
+def make_pipeline_train_step(cfg: TransformerConfig, mesh, n_micro: int, optimizer=None, axis_name: str = "stage"):
+    """Pipeline-parallel training step (the pp() strategy's executor).
+
+    Returns (init_state, train_step) as ``make_train_step`` does, but the
+    layer stack runs as a GPipe microbatch schedule over the mesh's
+    ``stage`` axis (``ray_tpu_torch.parallel.pipeline``), its backward from
+    autograd through the schedule, so the loss and gradients are those of
+    the sequential step on the whole batch. The state is placed with
+    ``shard_pytree(state, state_logical_axes(state, cfg), mesh, dp() |
+    pp())`` (layers over ``stage``); embedding, final norm and head are
+    replicated, the batch rows may be sharded over the data axes of the
+    mesh (each slot splits its rows into the n_micro microbatches). A
+    stage axis of 1 runs the plain loop over the layers. As in the
+    reference: the MoE aux loss is not threaded through the schedule (a MoE
+    config is refused) and neither are packed sequences."""
+    if cfg.n_experts:
+        raise ValueError(
+            "make_pipeline_train_step does not thread the MoE aux loss through the pipeline schedule; use "
+            "a dense stack with pp (or make_train_step with ep over a separate mesh axis)")
+    init_state, _ = make_train_step(cfg, optimizer)
+
+    def train_step(state: dict, batch: dict) -> dict:
+        return _apply(state, lambda p: _pipelined_loss(p, batch, cfg, mesh, n_micro, axis_name))
+
+    return init_state, train_step
+
+
+def _pipelined_loss(params: dict, batch: dict, cfg: TransformerConfig, mesh, n_micro: int, axis_name: str):
+    from ray_tpu_torch.models.sharded import _leaf_locals, _per_slot, _spec_of, batch_locals
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+    from ray_tpu_torch.parallel.sharding import PartitionSpec as P
+    from ray_tpu_torch.parallel.sharding import ShardedTensor, from_locals
+
+    if batch.get("segment_ids") is not None or batch.get("positions") is not None:
+        raise NotImplementedError(
+            "packed sequences (segment_ids/positions) are not threaded through the pipeline schedule; "
+            "use make_train_step")
+    tokens = batch["tokens"]
+    B, S1 = tokens.shape
+    S = S1 - 1
+    if B % n_micro:
+        raise ValueError(f"batch {B} not divisible by n_micro={n_micro}")
+
+    def stage_fn(lp, h):
+        pos = torch.arange(S, dtype=torch.int32, device=h.device).expand(h.shape[0], S)
+        return _layer(h, lp, cfg, pos)[0]
+
+    if cfg.remat:
+        stage_fn = _layer_body_fn(cfg, stage_fn)
+    mask_full = batch.get("mask")
+    if mesh.shape[axis_name] == 1:
+        full = {k: (v.full() if isinstance(v, ShardedTensor) else v) for k, v in params.items() if k != "layers"}
+        layers = {k: (v.full() if isinstance(v, ShardedTensor) else v) for k, v in params["layers"].items()}
+        tok = tokens.full() if isinstance(tokens, ShardedTensor) else torch.as_tensor(tokens)
+        x = full["embed"].to(cfg.dtype)[tok[:, :-1].long()]
+        h = pipeline_apply(stage_fn, layers, x.reshape(n_micro, B // n_micro, S, -1), mesh=mesh,
+                           axis_name=axis_name).reshape(B, S, -1)
+        logits = linear(rms_norm(h, full["final_norm"]), full["lm_head"])
+        return ce_from_logits(logits, tok[:, 1:], None if mask_full is None else mask_full[:, 1:])
+    data_axes = tuple(a for a in ("replica", "data", "fsdp") if mesh.shape[a] > 1)
+    rows = P(data_axes or None, None)
+    toks = batch_locals(tokens, mesh, rows)
+    masks = None if mask_full is None else batch_locals(mask_full, mesh, rows)
+    embed = _leaf_locals(params["embed"], mesh, _spec_of(params["embed"]))
+
+    def embed_micro(w, t):
+        x = w.to(cfg.dtype)[t[:, :-1].long()]
+        if x.shape[0] % n_micro:
+            raise ValueError(f"{x.shape[0]} rows per slot not divisible by n_micro={n_micro}")
+        return x.reshape(n_micro, x.shape[0] // n_micro, S, x.shape[-1])
+
+    xm = from_locals(_per_slot(embed_micro, embed, toks), mesh, P(None, data_axes or None))
+    h = pipeline_apply(stage_fn, params["layers"], xm, mesh=mesh, axis_name=axis_name, x_spec=xm.spec)
+    final = _leaf_locals(params["final_norm"], mesh, _spec_of(params["final_norm"]))
+    head = _leaf_locals(params["lm_head"], mesh, _spec_of(params["lm_head"]))
+    dev0 = mesh.slot_devices[0]
+    tot = torch.zeros((), dtype=torch.float32, device=dev0)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev0)
+    for s in range(mesh.size):
+        c = mesh.coords(s)
+        if any(int(v) for a, v in c.items() if a not in data_axes and a != axis_name) or \
+                int(c[axis_name]) != mesh.shape[axis_name] - 1:
+            continue  # one last-stage slot per block of rows counts its loss
+        hs = h.locals[s].reshape(-1, S, h.locals[s].shape[-1])
+        logits = linear(rms_norm(hs, final[s]), head[s])
+        t = toks[s][:, 1:]
+        m = torch.ones(t.shape, dtype=torch.float32, device=t.device) if masks is None else masks[s][:, 1:].float()
+        tot = tot + (_nll(logits, t) * m).sum().to(dev0)
+        cnt = cnt + m.sum().to(dev0)
+    return tot / cnt.clamp(min=1.0)
 
 
 class Transformer(nn.Module):

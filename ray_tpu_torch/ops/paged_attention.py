@@ -1,8 +1,8 @@
 """Paged decode attention: the hand-written CUDA kernel K4 and its plain
 PyTorch versions.
 
-Counterpart of ``ray_tpu/ops/paged_attention.py`` without the tensor-parallel
-``mesh`` branch. The serving engine's KV cache is a pool of fixed-size pages
+Counterpart of ``ray_tpu/ops/paged_attention.py``, its tensor-parallel
+``mesh`` branch included (K4 per head shard). The serving engine's KV cache is a pool of fixed-size pages
 ([KV, P_total, page_size, D]); each sequence owns a page-table row, and one
 query token per sequence attends to its first ``length`` cached tokens.
 ``paged_attention_reference`` is the plain version (it gathers the pages);
@@ -199,13 +199,31 @@ def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None):
     return o
 
 
-def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None):
+def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None, mesh=None, head_axis="tensor"):
     """Paged decode attention. q: [B, H, D] (one query token per sequence);
     k_pages/v_pages: [KV, P_total, page_size, D]; lengths: [B] valid tokens
     per sequence including the current one; page_indices: [B, pages_per_seq]
     (entries past a sequence's length must still be valid page ids: use 0).
 
-    CPU tensors take the plain version; CUDA tensors launch kernel K4."""
+    CPU tensors take the plain version; CUDA tensors launch kernel K4.
+
+    mesh: tensor-parallel serving (``llm/engine.py``). The head axes (H of
+    q, KV of the pools) are sharded over ``mesh[head_axis]`` (tensors or
+    ShardedTensors), and each slot runs the op on its own head shard of q
+    against its own KV shard of the pools (K4 per slot on the card; GQA
+    groups never straddle shards because callers check KV % degree == 0).
+    Lengths and page tables are replicated. The result is a ShardedTensor
+    when an input was one, else the gathered [B, H, D]."""
+    if mesh is not None and mesh.shape.get(head_axis, 1) > 1:
+        from ray_tpu_torch.parallel._shard_map import shard_map
+        from ray_tpu_torch.parallel.sharding import PartitionSpec as P
+
+        def body(qs, kps, vps, lens, tables):
+            return [paged_attention(*a, scale=scale) for a in zip(qs, kps, vps, lens, tables)]
+
+        pool = P(head_axis, None, None, None)
+        return shard_map(body, mesh=mesh, in_specs=(P(None, head_axis, None), pool, pool, P(None), P(None, None)),
+                         out_specs=P(None, head_axis, None))(q, k_pages, v_pages, lengths, page_indices)
     H, KV = q.shape[1], k_pages.shape[0]
     if H % KV:
         raise ValueError(f"n_heads {H} not divisible by kv_heads {KV}")

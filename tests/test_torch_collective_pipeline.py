@@ -1,8 +1,9 @@
-"""The port's collective host API on port clusters: the cases of
-``tests/test_collective_pipeline.py`` except the two that test
-``ray_tpu.parallel``'s pipeline over a mesh (ROADMAP Queue 1 item 6), left
-out: ``test_pipeline_matches_sequential`` and
-``test_pipeline_single_stage_fallback``.
+"""The port's collective host API on port clusters and its pipeline
+schedule over a mesh of slots: the cases of
+``tests/test_collective_pipeline.py``. The two pipeline cases
+(``test_pipeline_matches_sequential``, ``test_pipeline_single_stage_fallback``)
+run ``ray_tpu_torch.parallel.pipeline_apply`` on 8 CPU slots
+(``RAY_TPU_TORCH_DEVICE_SLOTS=8``), inputs from numpy seeds.
 
 Collective host API + pipeline parallelism tests (8-dev CPU mesh)."""
 import numpy as np
@@ -51,6 +52,61 @@ def test_collective_ops(shared_ray):
     from ray_tpu_torch.collective.collective import _GROUP_PREFIX
 
     rt.kill(rt.get_actor(_GROUP_PREFIX + "g1"))
+
+
+def _normal(seed, shape):
+    import torch
+
+    return torch.tensor(np.random.default_rng(seed).standard_normal(shape), dtype=torch.float32)
+
+
+def test_pipeline_matches_sequential(monkeypatch):
+    import torch
+
+    from ray_tpu_torch.parallel import MeshSpec, devices
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    monkeypatch.setenv("RAY_TPU_TORCH_DEVICE_SLOTS", "8")
+    n_stages, n_micro, mb, d = 4, 8, 2, 16
+    w = _normal(0, (n_stages, d, d)) * 0.3
+    b = _normal(1, (n_stages, d)) * 0.1
+    params = {"w": w, "b": b}
+    x = _normal(2, (n_micro, mb, d))
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    # sequential oracle
+    ref = x
+    for i in range(n_stages):
+        ref = torch.tanh(ref @ w[i] + b[i])
+
+    mesh = MeshSpec(stage=4, data=2).build(devices("cpu"))
+    with mesh:
+        out = pipeline_apply(stage_fn, params, x, mesh=mesh)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_pipeline_single_stage_fallback(monkeypatch):
+    import torch
+
+    from ray_tpu_torch.parallel import MeshSpec, devices
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    monkeypatch.setenv("RAY_TPU_TORCH_DEVICE_SLOTS", "8")
+    w = _normal(0, (3, 8, 8)) * 0.3
+    x = _normal(1, (4, 2, 8))
+    params = {"w": w}
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"])
+
+    mesh = MeshSpec(data=-1).build(devices("cpu"))
+    out = pipeline_apply(stage_fn, params, x, mesh=mesh)
+    ref = x
+    for i in range(3):
+        ref = torch.tanh(ref @ w[i])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
 
 
 def test_create_collective_group_declarative(shared_ray):

@@ -158,15 +158,28 @@ def test_dense_and_paged_layouts_agree_and_warmup_leaves_no_trace():
 @pytest.mark.parametrize("option", [dict(kv_layout="dense", prefix_cache=True),
                                     dict(kv_layout="dense", chunked_prefill=16),
                                     dict(kv_layout="paged", page_size=16, tensor_parallel=2)])
-def test_later_slice_options_raise(option):
+def test_later_slice_options_raise(option, monkeypatch):
     """The prefix cache and chunked prefill are ported but need the paged
-    layout (ValueError, as in ray_tpu); tensor-parallel serving is a later
-    slice (NotImplementedError naming its ROADMAP item)."""
+    layout (ValueError, as in ray_tpu). Tensor-parallel serving is ported:
+    the tensor_parallel=2 case builds over two CPU slots and serves the
+    greedy tokens of the one-slot engine."""
     if "tensor_parallel" in option:
-        exc, match = NotImplementedError, "ROADMAP Queue 1 item 6"
-    else:
-        exc, match = ValueError, "requires kv_layout='paged'"
-    with pytest.raises(exc, match=match):
+        import dataclasses
+
+        monkeypatch.setenv("RAY_TPU_TORCH_DEVICE_SLOTS", "2")
+        cfg = dataclasses.replace(CFG, vocab_size=96)  # the vocabulary splits over the two slots
+        prompt = np.array([5, 6, 7, 9], np.int32)
+
+        def build(**kw):
+            return LLMEngine(cfg, engine_config=EngineConfig(max_seq=128, prefill_buckets=(16,), **kw),
+                             device="cpu")
+
+        tp = build(**option)
+        assert tp.params["layers"]["wq"].addressable_shards[0].data.shape[2] == cfg.n_heads // 2
+        one = build(**dict(option, tensor_parallel=1))
+        assert tp.generate(prompt, max_tokens=8)["tokens"] == one.generate(prompt, max_tokens=8)["tokens"]
+        return
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
         _engine(max_seq=128, **option)
 
 

@@ -8,7 +8,9 @@ ray_tpu module, nor does either stage of a compiled DAG, a Data actor
 pool's worker, a streaming split's consumer, a train worker (the train,
 collective, ckpt and elastic packages imported in the driver too), a Tune
 trial or an RL env runner (tune and rl imported in the driver too, without
-gymnasium)."""
+gymnasium). The parallel package, the ring and Ulysses attentions and the
+sharded train program import neither, and neither does a tensor-parallel
+serve replica."""
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +34,8 @@ leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]
 assert not leaked, leaked
 import ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.ops, ray_tpu_torch.models, ray_tpu_torch.convert
 import ray_tpu_torch.llm.deployment, ray_tpu_torch.llm.openai, ray_tpu_torch.llm.batch, ray_tpu_torch.util
+import ray_tpu_torch.parallel, ray_tpu_torch.parallel.pipeline, ray_tpu_torch.parallel._shard_map
+import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses, ray_tpu_torch.models.sharded
 from ray_tpu_torch.llm import LLMServer, OpenAIServer, Tokenizer, load_tokenizer
 assert "jax" not in sys.modules, "jax imported"
 leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]
@@ -105,19 +109,25 @@ class Probe(LLMServer):
         import sys
         return sorted(sys.modules)
 
+import os
+os.environ["RAY_TPU_TORCH_DEVICE_SLOTS"] = "2"  # the workers inherit it: two CPU slots for the TP-2 replica
 rt.init(num_cpus=2)
 serve.start(proxy=False)
 try:
     model = dict(vocab_size=64, d_model=32, n_layers=1, n_heads=2, n_kv_heads=1, d_ff=64,
                  max_seq_len=64)
     engine = {"max_slots": 2, "max_seq": 64, "prefill_buckets": (16,)}
-    handle = serve.run(serve.deployment(Probe).bind(model, engine, None, None, None, "cpu"),
-                       name="guard", http=False)
-    assert len(handle.remote({"tokens": [1, 2, 3], "max_tokens": 4}).result(timeout=120)["tokens"]) == 4
-    mods = handle.modules.remote().result(timeout=60)
-    assert "ray_tpu_torch.serve.replica" in mods and "torch" in mods, mods
-    bad = [m for m in mods if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
-    assert not bad, bad
+    tp_model = dict(model, n_kv_heads=2)
+    tp_engine = dict(engine, tensor_parallel=2)
+    for name, args in (("guard", (model, engine)), ("guard_tp", (tp_model, tp_engine))):
+        handle = serve.run(serve.deployment(Probe).bind(*args, None, None, None, "cpu"), name=name, http=False)
+        assert len(handle.remote({"tokens": [1, 2, 3], "max_tokens": 4}).result(timeout=120)["tokens"]) == 4
+        mods = handle.modules.remote().result(timeout=60)
+        assert "ray_tpu_torch.serve.replica" in mods and "torch" in mods, mods
+        if name == "guard_tp":
+            assert "ray_tpu_torch.parallel._shard_map" in mods, mods
+        bad = [m for m in mods if m in ("ray_tpu", "jax") or m.startswith(("ray_tpu.", "jax."))]
+        assert not bad, bad
 finally:
     serve.shutdown()
     rt.shutdown()
@@ -126,9 +136,10 @@ print("clean")
 
 
 def test_serve_replica_loads_no_jax_and_no_ray_tpu():
-    """A serve replica that hosts the engine (an LLMServer on the CPU)
-    reports its process's sys.modules after serving a request: torch, the
-    port's replica, and nothing of jax or ray_tpu."""
+    """A serve replica that hosts the engine (an LLMServer on the CPU), and
+    one that hosts a tensor-parallel engine over two CPU slots, report their
+    processes' sys.modules after serving a request: torch, the port's
+    replica (and its parallel package), and nothing of jax or ray_tpu."""
     out = subprocess.run([sys.executable, "-c", _REPLICA_PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-4000:]

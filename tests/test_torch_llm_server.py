@@ -503,9 +503,9 @@ def test_servers_run_on_the_gpu_unless_asked(monkeypatch, tok_path):
 
 
 def test_runtime_only_arguments_raise(weights):
-    """What still waits for a later slice raises a typed error naming its
-    ROADMAP item: tensor_parallel > 1 in the app builders (the mesh). A
-    params ObjectRef is served since serve came to the port
+    """The app builders accept tensor_parallel > 1 since the mesh came to
+    the port: the replica then demands that many GPUs (the reference's
+    {"TPU": tp}). A params ObjectRef is served since serve came to the port
     (tests/test_torch_serve_llm.py); batch_generate since Data did
     (tests/test_torch_data_actor_pool.py): here it only builds its lazy
     actor-pool stage, with the device among the UDF's arguments;
@@ -521,8 +521,10 @@ def test_runtime_only_arguments_raise(weights):
     assert stage.params["compute"] == "actors" and stage.params["max_tasks_in_flight_per_actor"] == 2
     assert stage.params["fn_constructor_args"][-1] == "cpu"
     for build in (build_llm_app, build_openai_app):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            build(PORT_MODEL, dict(ENGINE, tensor_parallel=2), device="cpu")
+        app = build(PORT_MODEL, dict(ENGINE, tensor_parallel=2), device="cpu")
+        assert app.deployment.config.ray_actor_options["num_gpus"] == 2.0
+        one = build(PORT_MODEL, ENGINE, device="cpu")
+        assert one.deployment.config.ray_actor_options.get("num_gpus") is None
 
 
 def test_warmup_runs_the_sampler(weights, monkeypatch):
