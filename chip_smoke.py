@@ -270,6 +270,38 @@ Phases, in order; any failure exits non-zero:
      exactly and the first divergence, TTFT, decode tok/s and peak memory
      per degree. Slots of one card check the sharded path; they are not a
      speed-up.
+  6k. operator-250M: the operator surface. (a) `python -m ray_tpu_torch
+     start --head --port 0` (a state dir of its own): the head must
+     advertise GPU 1 and the card's name (autodetected), `status` and
+     `list nodes` must print the GPU; this process joins by address. (b)
+     A num_gpus=1 task with runtime_env working_dir + py_modules +
+     env_vars imports the shipped module and runs K1 (ops.attention
+     .flash_fwd, causal) on seeded q, k, v at phase 3's shape (B 1, S 1000,
+     H 16, KV 4, D 64, a pad segment): the env var seen, the cwd the
+     materialized working_dir, K1 launched in the worker, o and LSE within
+     phase 3's 2e-2 / 1e-3 of mha_reference; then a task in a pip venv
+     (the same module as a local package, --no-index, --system-site-packages)
+     runs on the venv's interpreter with the same K1 gates. Whether podman
+     or docker exists is printed. (c) `job submit --wait` of a script that
+     builds phase 6's engine on cuda and drives 8 of phase 6's prompts x
+     32 greedy tokens: SUCCEEDED, K1 and K4 launched in the job, its
+     prefill logits (saved with torch.save) and first tokens within phase
+     6's bounds of the plain forward, its tokens equal to this process's
+     drive of the same prompts. (d) The dashboard: /api/jobs lists the job
+     SUCCEEDED with its entrypoint, /api/cluster GPU 1, /metrics answers
+     Prometheus text. (f) A GPU replica (LLMServer, 16 requests at once)
+     at /day maps a body of n bytes to min(n, 512) seeded prompt tokens
+     and 16 new tokens (SSE when x-stream: 1); the quick seed-0 day (636
+     requests over 16 s) replayed open-loop at warp 2, summarized into a
+     run ledger, rendered, and `report diff L L` must exit 0. Gates: every
+     request has an outcome, each failure a QoS shed (429) or deadline
+     (504), interactive goodput > 0, every 200 stream a TTFT, K1 and K4
+     launched in the replica. Printed: per class p50/p99, TTFT p95 and
+     goodput. Then `stop` (no recorded pid left alive) and (e), in this
+     process: a 1-CPU, 0-GPU head, a pending num_gpus=1 K1 task (as in
+     (b)) makes the autoscaler launch one {"CPU": 4, "GPU": 1} node
+     labelled with the card; the task's K1 holds (b)'s gates; later
+     updates arm, drain and terminate the idle node.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -411,6 +443,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1178,31 +1211,41 @@ def serve_stats(done, ttft, t0, t1):
     )
 
 
-def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02, chunk=None):
+def served_logits(eng, part):
+    """The engine's own prefill logits at the last position of each prompt of
+    `part` [m, P] (written to the dead page / idle slots)."""
+    m, P = part.shape
+    third = (np.zeros((m, P // eng.ec.page_size), np.int32) if eng.paged
+             else np.arange(m, dtype=np.int64))
+    return eng._prefill_logits(part, np.full(m, P, np.int32), third)
+
+
+def check_first_tokens(cfg, eng, prompts, done, dev, tol_max=0.25, tol_mean=0.02, chunk=None, served=None):
     """The engine's prefill logits against the plain forward, and each
     request's first token against the plain logits' top-1; `chunk` prompts
-    at a time (default all: the plain forward's fp32 scores grow with it)."""
+    at a time (default all: the plain forward's fp32 scores grow with it).
+    `served`: the prefill logits [n, V] another process's engine on the same
+    weights computed (default: `eng`'s own)."""
     import torch
 
     from ray_tpu_torch.models.transformer import forward_hidden, linear
 
-    n, P = len(prompts), len(prompts[0])
+    n = len(prompts)
     chunk = chunk or n
     plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
-    plain, served = [], []
+    plain, mine = [], []
     with torch.no_grad():
         for i in range(0, n, chunk):
             part = np.stack(prompts[i:i + chunk])
-            m = len(part)
             toks = torch.tensor(part, dtype=torch.long, device=dev)
             # The plain forward's last position only: the [m, S, V] logits
             # at a 256000-entry vocabulary are 1 GB a 2048-token prompt in bf16.
             hidden = forward_hidden(eng.params, toks, plain_cfg)[0][:, -1]
             plain.append(linear(hidden, eng.params["lm_head"]).float())  # [m, V]
-            third = (np.zeros((m, P // eng.ec.page_size), np.int32) if eng.paged
-                     else np.arange(m, dtype=np.int64))  # dead page / idle slots
-            served.append(eng._prefill_logits(part, np.full(m, P, np.int32), third))
-    plain, served = torch.cat(plain), torch.cat(served)
+            if served is None:
+                mine.append(served_logits(eng, part))
+    plain = torch.cat(plain)
+    served = torch.cat(mine) if served is None else served.to(dev).float()
     diff = (served - plain).abs()
     first = torch.tensor([done[f"r{i}"]["tokens"][0] for i in range(n)], device=dev)
     gap = plain.max(dim=-1).values - plain.gather(1, first[:, None])[:, 0]
@@ -1381,7 +1424,7 @@ def phase_prefix(dev, rng, profile_dir=None):
     plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
     with torch.no_grad():
         def plain(p):
-            return forward(eng.params, torch.tensor(p[None], dtype=torch.long, device=dev), plain_cfg)[:, -1].float()
+            return forward(eng.params, torch.tensor(p[None], dtype=torch.long, device=dev), plain_cfg)[0][:, -1].float()
 
         last_chunk = [(p, (len(p) - 1) // CHUNK * CHUNK) for p in [seed] + longs]
         tails = [(p, SYS_LEN) for p in hits] + last_chunk
@@ -4608,6 +4651,567 @@ def phase_parallel_train(dev, card):
     return out, launches
 
 
+# Phase 6k: the operator surface. A cluster started and stopped through the
+# port's CLI (OPS_CPUS CPUs and the card on its head); (b) K1 in num_gpus=1
+# runtime_env tasks at phase 3's shape (B, S of OPS_K1; H, KV, D; causal; a
+# pad segment), with the seed of its inputs; (c) a job serving OPS_JOB_N of
+# phase 6's prompts x OPS_JOB_TOKENS greedy tokens on phase 6's engine;
+# (f) the quick seed-0 day replayed at OPS_DAY_WARP by OPS_DAY_SENDERS
+# client threads (enough for the storm's arrivals at the deadlines' ~1 s)
+# against one GPU replica admitting OPS_DAY_ONGOING requests at once (the
+# rest wait in the handle's fair queue, where the proxy's admission control
+# sees them) and answering prompts of at most OPS_DAY_PROMPT seeded tokens
+# with OPS_DAY_TOKENS new tokens. Every wait is bounded by OPS_TIMEOUT_S.
+OPS_CPUS, OPS_TIMEOUT_S = 8, 300.0
+OPS_K1, OPS_K1_SEED = (1, 1000), 6
+OPS_JOB_N, OPS_JOB_TOKENS = 8, 32
+OPS_ENGINE = dict(max_slots=SLOTS, max_seq=2048, kv_layout="paged", page_size=PAGE, seed=0)
+OPS_DAY_PROMPT, OPS_DAY_TOKENS, OPS_DAY_WARP, OPS_DAY_SENDERS, OPS_DAY_ONGOING = 512, 16, 2.0, 192, 16
+# The module (b) ships in py_modules, installs as a local package into a pip venv,
+# and (e)'s task imports: seeded K1 inputs at phase 3's shape and one K1
+# launch on them in the importing worker.
+OPS_PROBE_SRC = f'''"""K1 on seeded inputs in the importing process (chip_smoke.py phase 6k)."""
+import os
+import sys
+
+import numpy as np
+
+B, S, H, KV, D = {OPS_K1[0]}, {OPS_K1[1]}, {H}, {KV}, {D}
+
+
+def inputs(seed, dev):
+    """q, k, v [B, S, *, D] bf16 and a pad segment [B, S] int32 from `seed`."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D), dtype=np.float32)).to(dev, torch.bfloat16)
+               for h in (H, KV, KV))
+    lens = rng.integers(S // 2, S + 1, B)
+    seg = torch.from_numpy((np.arange(S)[None, :] >= lens[:, None]).astype(np.int32)).to(dev)
+    return q, k, v, seg
+
+
+def run(seed, env_key=""):
+    """K1 (ops.attention.flash_fwd, causal) on inputs(seed) on the card."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("a num_gpus=1 worker sees no CUDA device")
+    q, k, v, seg = inputs(seed, "cuda")
+    attention.LAUNCHES = 0
+    o, lse = attention.flash_fwd(q, k, v, segment_ids=seg, causal=True)
+    torch.cuda.synchronize()
+    return dict(o=o.cpu(), lse=lse.cpu(), launches=attention.LAUNCHES, pid=os.getpid(), cwd=os.getcwd(),
+                exe=sys.executable, env=os.environ.get(env_key), module=__file__,
+                device=torch.cuda.get_device_name(0))
+'''
+# The job's entrypoint (c): phase 6's engine built on the card in the job's
+# own process, a drive of the prompts in OPS_JOB_PROMPTS, one JSON line of
+# its tokens and launches; its prefill logits go to OPS_JOB_LOGITS.
+OPS_JOB_SRC = '''"""Phase 6k(c)'s job: phase 6's engine on cuda serving the prompts in
+$OPS_JOB_PROMPTS (chip_smoke.py phase 6k)."""
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from ray_tpu_torch.llm import EngineConfig, LLMEngine
+from ray_tpu_torch.models import TransformerConfig
+from ray_tpu_torch.ops import attention, paged_attention
+
+t0 = time.perf_counter()
+prompts = list(np.load(os.environ["OPS_JOB_PROMPTS"]))
+eng = LLMEngine(TransformerConfig(**cs.MODEL), engine_config=EngineConfig(**cs.OPS_ENGINE), device="cuda")
+eng.warmup(buckets=(cs.PROMPT_LEN,))
+attention.LAUNCHES = paged_attention.LAUNCHES = 0
+done, ttft, d0, d1 = cs.drive(eng, prompts, cs.OPS_JOB_TOKENS)
+launches = {"flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+with torch.no_grad():
+    torch.save(cs.served_logits(eng, np.stack(prompts)).cpu(), os.environ["OPS_JOB_LOGITS"])
+print(json.dumps({"tokens": {rid: [int(t) for t in ev["tokens"]] for rid, ev in done.items()},
+                  "launches": launches, "drive_s": d1 - d0, "job_s": time.perf_counter() - t0,
+                  "device": torch.cuda.get_device_name(0),
+                  "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}), flush=True)
+'''
+
+
+def _ops_cli(env, *args, timeout=OPS_TIMEOUT_S, check=True):
+    """`python -m ray_tpu_torch ARGS` from the repo root; (rc, stdout, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], env=env, capture_output=True,
+                         text=True, timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if check and out.returncode != 0:
+        raise AssertionError(f"`python -m ray_tpu_torch {' '.join(args)}` exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.returncode, out.stdout, time.perf_counter() - t0
+
+
+def _ops_probe(path):
+    """The probe module (OPS_PROBE_SRC) loaded from its file in this process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("k1probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ops_hold_k1(dev, probe, out, desc):
+    """A probe's K1 result against mha_reference in fp32 on the same seeded
+    inputs: phase 3's bounds (2e-2 on o, 1e-3 on LSE) and launches > 0."""
+    import torch
+
+    q, k, v, seg = probe.inputs(OPS_K1_SEED, dev)
+    o_ref, lse_ref = _mha_rows(q.float(), k.float(), v.float(), True, seg)
+    o, lse = out["o"].to(dev), out["lse"].to(dev)
+    err = (o.float() - o_ref).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    finite = bool(torch.isfinite(o).all())
+    log(f"  {desc}: K1 launches {out['launches']} in pid {out['pid']} ({out['device']}), "
+        f"max|o-ref| {err:.3e} max|lse-ref| {lse_err:.3e} finite {finite}")
+    if not (out["launches"] > 0 and finite and err <= 2e-2 and lse_err <= 1e-3):
+        raise AssertionError(f"6k {desc}: K1 in the task disagrees with its plain version or never launched")
+    return dict(launches=out["launches"], max_abs_err=err, lse_err=lse_err)
+
+
+def _ops_package(dirpath, name, src):
+    """A local package directory `name` (its __init__ is `src`) that pip
+    installs with --no-index --no-build-isolation (setuptools from the base
+    environment). Returns its path."""
+    root = os.path.join(dirpath, name)
+    os.makedirs(os.path.join(root, name))
+    with open(os.path.join(root, "pyproject.toml"), "w") as f:
+        f.write(f"[build-system]\nrequires = []\nbuild-backend = 'setuptools.build_meta'\n"
+                f"[project]\nname = '{name}'\nversion = '0.1'\n")
+    with open(os.path.join(root, name, "__init__.py"), "w") as f:
+        f.write(src)
+    return root
+
+
+def _ops_runtime_env(rt, dev, work):
+    """6k(b): K1 in num_gpus=1 tasks given a runtime_env: working_dir +
+    py_modules + env_vars, then a pip venv with a local package."""
+    wd, mods, pkgs = (os.path.join(work, d) for d in ("wd", "mods", "pkgs"))
+    for d in (wd, os.path.join(mods, "k1probe"), pkgs):
+        os.makedirs(d)
+    marker = f"working dir of 6k {os.getpid()}"
+    with open(os.path.join(wd, "marker.txt"), "w") as f:
+        f.write(marker)
+    with open(os.path.join(mods, "k1probe", "__init__.py"), "w") as f:
+        f.write(OPS_PROBE_SRC)
+    probe = _ops_probe(os.path.join(mods, "k1probe", "__init__.py"))
+    renv = {"working_dir": wd, "py_modules": [mods], "env_vars": {"OPS_6K": marker}}
+
+    @rt.remote(num_gpus=1, runtime_env=renv)
+    def shipped(seed):
+        import k1probe
+
+        out = k1probe.run(seed, "OPS_6K")
+        with open("marker.txt") as f:
+            out["marker"] = f.read()
+        return out
+
+    t0 = time.perf_counter()
+    out = rt.get(shipped.remote(OPS_K1_SEED), timeout=OPS_TIMEOUT_S)
+    task_s = time.perf_counter() - t0
+    ok_env = out["env"] == marker and out["marker"] == marker
+    in_wd = "runtime_envs" in out["cwd"] and os.path.realpath(out["cwd"]) != os.path.realpath(wd)
+    log(f"  working_dir + py_modules + env_vars task: {task_s:.2f} s, env var seen {out['env'] == marker}, "
+        f"cwd {out['cwd']} (the materialized working_dir: {in_wd}), module {out['module']}")
+    if not (ok_env and in_wd and "runtime_envs" in out["module"] and out["pid"] != os.getpid()):
+        raise AssertionError(f"6k(b): the task did not run in its runtime_env: {({k: out[k] for k in ('env', 'cwd', 'module', 'marker')})}")
+    held = _ops_hold_k1(dev, probe, out, "runtime_env task")
+
+    pkg = _ops_package(pkgs, "k1probe_pkg", OPS_PROBE_SRC)
+
+    @rt.remote(num_gpus=1, runtime_env={"pip": [pkg], "pip_install_options": ["--no-index", "--no-build-isolation"]})
+    def in_venv(seed):
+        import k1probe_pkg
+
+        return k1probe_pkg.run(seed)
+
+    t0 = time.perf_counter()
+    vout = rt.get(in_venv.remote(OPS_K1_SEED), timeout=OPS_TIMEOUT_S)
+    venv_s = time.perf_counter() - t0
+    in_venv_exe = "/runtime_envs/venvs/" in vout["exe"]
+    log(f"  pip venv task (a local package, --no-index, --system-site-packages): {venv_s:.2f} s with the "
+        f"venv's build, sys.executable {vout['exe']} (the venv's: {in_venv_exe})")
+    if not in_venv_exe:
+        raise AssertionError(f"6k(b): the pip task ran on {vout['exe']}, not its venv's interpreter")
+    vheld = _ops_hold_k1(dev, probe, vout, "pip venv task")
+    engines = {e: shutil.which(e) for e in ("podman", "docker")}
+    log(f"  container engines on this machine (the container path is not run here): {engines}")
+    return dict(task_s=task_s, venv_s=venv_s, task=held, venv=vheld, container_engines=engines,
+                launches=held["launches"] + vheld["launches"]), probe
+
+
+def _ops_job(rt, dev, env, addr, work, prompts):
+    """6k(c): `job submit --wait` of OPS_JOB_SRC; its tokens against this
+    process's own drive, its prefill logits against the plain forward."""
+    import torch
+
+    from ray_tpu_torch.job import JobSubmissionClient
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.ops import attention, paged_attention
+
+    script = os.path.join(work, "serve_job.py")
+    with open(script, "w") as f:
+        f.write(OPS_JOB_SRC)
+    np.save(os.path.join(work, "job_prompts.npy"), np.stack(prompts))
+    logits_path = os.path.join(work, "job_logits.pt")
+    entry = (f"cd {work} && OPS_JOB_PROMPTS={work}/job_prompts.npy OPS_JOB_LOGITS={logits_path} "
+             f"{sys.executable} serve_job.py")
+    rc, out, submit_s = _ops_cli(env, "--address", addr, "job", "submit", "--wait", entry)
+    job_id, status = out.split()[-2:]
+    client = JobSubmissionClient()
+    logs = client.get_job_logs(job_id)
+    log(f"  job {job_id}: submit -> {status} in {submit_s:.2f} s (the CLI's whole run)")
+    if status != "SUCCEEDED":
+        raise AssertionError(f"6k(c): job {job_id} ended {status}; its log:\n{logs[-4000:]}")
+    res = json.loads([ln for ln in logs.splitlines() if ln.startswith("{")][-1])
+    log(f"  job's engine on {res['device']} (CUDA_VISIBLE_DEVICES {res['cuda_visible_devices']!r}): "
+        f"{len(res['tokens'])} requests x {OPS_JOB_TOKENS} tokens, drive {res['drive_s']:.3f} s, "
+        f"script {res['job_s']:.2f} s, launches K1 {res['launches']['flash_fwd']} K4 "
+        f"{res['launches']['paged_decode']}")
+    if not (res["launches"]["flash_fwd"] > 0 and res["launches"]["paged_decode"] > 0):
+        raise AssertionError(f"6k(c): a kernel of the job's path was never launched: {res['launches']}")
+    cfg = TransformerConfig(**MODEL)
+    eng = LLMEngine(cfg, engine_config=EngineConfig(**OPS_ENGINE))
+    eng.warmup(buckets=(PROMPT_LEN,))
+    attention.LAUNCHES = paged_attention.LAUNCHES = 0
+    done, _, _, _ = drive(eng, prompts, OPS_JOB_TOKENS)
+    mine = {rid: [int(t) for t in ev["tokens"]] for rid, ev in done.items()}
+    equal = mine == res["tokens"]
+    job_done = {rid: {"tokens": toks} for rid, toks in res["tokens"].items()}
+    held = check_first_tokens(cfg, eng, prompts, job_done, dev, served=torch.load(logits_path))
+    log(f"  the job's tokens equal this process's drive of the same prompts on the same weights: {equal}")
+    if not equal:
+        bad = [rid for rid in mine if mine[rid] != res["tokens"].get(rid)]
+        raise AssertionError(f"6k(c): the job's tokens differ from this process's in {bad}")
+    del eng
+    torch.cuda.empty_cache()
+    listed = {j["job_id"]: j for j in client.list_jobs()}
+    return dict(job_id=job_id, submit_to_succeeded_s=submit_s, drive_s=res["drive_s"], job_script_s=res["job_s"],
+                first_tokens=held, tokens_equal=equal, entrypoint=listed[job_id]["entrypoint"],
+                launches=res["launches"])
+
+
+def _ops_dashboard(job):
+    """6k(d): the dashboard on (a)'s cluster: /api/jobs, /api/cluster, /metrics."""
+    import urllib.request
+
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+
+    def get(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+
+    port = start_dashboard(port=0)
+    try:
+        _, _, body = get(port, "/api/jobs")
+        jobs = {j["job_id"]: j for j in json.loads(body)}
+        _, _, body = get(port, "/api/cluster")
+        gpus = sum(n["resources_total"].get("GPU", 0) for n in json.loads(body)["nodes"].values()
+                   if n["state"] == "ALIVE")
+        status, ctype, body = get(port, "/metrics")
+        prom = body.decode()
+    finally:
+        stop_dashboard()
+    rec = jobs.get(job["job_id"], {})
+    log(f"  dashboard: /api/jobs {rec.get('status')} {rec.get('entrypoint', '')[:60]!r}..., /api/cluster GPU {gpus:g}, "
+        f"/metrics {status} {ctype} ({prom.count('# TYPE')} metric families)")
+    if not (rec.get("status") == "SUCCEEDED" and rec.get("entrypoint") == job["entrypoint"]):
+        raise AssertionError(f"6k(d): /api/jobs does not list the job as SUCCEEDED: {rec}")
+    if gpus != 1 or status != 200 or "text/plain" not in ctype or "# TYPE raytpu_" not in prom:
+        raise AssertionError(f"6k(d): /api/cluster GPU {gpus}, /metrics {status} {ctype}")
+    return dict(jobs=len(jobs), cluster_gpus=gpus, metric_families=prom.count("# TYPE"))
+
+
+def _day_server():
+    """The day's deployment: LLMServer (counted as in 6g) mapping a request's
+    body size n to a prompt of min(n, OPS_DAY_PROMPT) tokens drawn from
+    seed n, OPS_DAY_TOKENS greedy new tokens, SSE when `x-stream: 1`. A
+    stream whose deadline passes after its first frame ends with an error
+    frame (its status is already 200) and is counted."""
+    from ray_tpu_torch.llm.deployment import LLMServer
+
+    base = _counted(LLMServer)
+
+    class DayLLM(base):
+        _cut = 0
+
+        def __call__(self, request):
+            self._served += 1
+            n = max(1, min(len(request.body or b""), OPS_DAY_PROMPT))
+            tokens = np.random.default_rng(n).integers(0, MODEL["vocab_size"], n).tolist()
+            if request.headers.get("x-stream") == "1":
+                return self._day_stream(tokens)
+            return self.generate(tokens, OPS_DAY_TOKENS)
+
+        def _day_stream(self, tokens):
+            from ray_tpu_torch import qos
+
+            started = False
+            try:
+                for frame in self._sse_stream(tokens, OPS_DAY_TOKENS):
+                    started = True
+                    yield frame
+            except qos.DeadlineExceeded as e:
+                if not started:
+                    raise
+                self._cut += 1
+                yield f"data: {json.dumps({'error': str(e)})}\n\n"
+
+        def cut_streams(self):
+            return self._cut
+
+    DayLLM.__name__ = DayLLM.__qualname__ = "DayLLM"
+    return DayLLM
+
+
+def _ops_replay(rt, env, work):
+    """6k(f): the quick seed-0 day replayed open-loop against a GPU replica
+    behind the proxy, folded into a run ledger; `report diff L L` exits 0."""
+    from ray_tpu_torch import replay, serve
+    from ray_tpu_torch.llm.deployment import build_llm_app
+    from ray_tpu_torch.llm.engine import EngineConfig
+    from ray_tpu_torch.obs import ledger
+
+    serve.start()
+    try:
+        buckets = tuple(b for b in EngineConfig().prefill_buckets if b <= OPS_DAY_PROMPT)
+        app = build_llm_app(MODEL, OPS_ENGINE, max_ongoing_requests=OPS_DAY_ONGOING, warmup_buckets=buckets,
+                            ray_actor_options={"num_gpus": 1})
+        _, ready_s, replicas, _ = _app_run(rt, serve, app, _day_server(), "day", route_prefix="/day")
+        _app_counts(rt, replicas, reset=True)
+        params = replay.default_params(quick=True)
+        header, records = replay.synthesize(0, **params)
+        spans = replay.phase_spans(params)
+        t0 = time.perf_counter()
+        outcomes = replay.Replayer(serve.http_port(), time_warp=OPS_DAY_WARP,
+                                   max_workers=OPS_DAY_SENDERS).run(header, records)
+        replay_s = time.perf_counter() - t0
+        counts = _app_counts(rt, replicas)[0]
+        cut = rt.get(replicas[0].handle_request.remote("cut_streams", (), {}), timeout=60)
+    finally:
+        serve.shutdown()
+    summary = replay.summarize(outcomes, spans)
+    sha = hashlib.sha256(replay.dumps_trace(header, records)).hexdigest()
+    led = ledger.build(meta={"scenario": "day_in_the_life_gpu", "seed": 0, "quick": True,
+                             "time_warp": OPS_DAY_WARP, "requests": header["requests"], "trace_sha256": sha},
+                       spans=spans, load=summary,
+                       counters={"k1.launches": float(counts["flash_fwd"]),
+                                 "k4.launches": float(counts["paged_decode"]),
+                                 "serve.stream.cut_total": float(cut)})
+    path = os.path.join(work, "day_ledger.json")
+    ledger.save(path, led)
+    log("\n".join("    " + ln for ln in ledger.render(led).splitlines()))
+    rc, out, _ = _ops_cli(env, "report", "diff", path, path, check=False)
+    codes = {}
+    for o in outcomes:
+        codes[o["code"]] = codes.get(o["code"], 0) + 1
+    streams = [o for o in outcomes if o["code"] == 200 and o["stream"]]
+    classes = {}
+    for cls, c in summary["classes"].items():
+        t = c["_total"]
+        classes[cls] = {k: t[k] for k in ("n", "ok", "goodput", "shed", "expired", "p50_s", "p99_s", "ttft_p95_s")}
+        log(f"  {cls:>11}: n {t['n']} ok {t['ok']} goodput {t['goodput']} shed {t['shed']} expired "
+            f"{t['expired']}  p50 {t['p50_s']} s  p99 {t['p99_s']} s  TTFT p95 {t['ttft_p95_s']} s")
+    log(f"  replay: {len(records)} requests in {replay_s:.2f} s at warp {OPS_DAY_WARP} (replica ready in "
+        f"{ready_s:.2f} s), status codes {codes}, {len(streams)} streams answered, {cut} cut by their "
+        f"deadline after the first frame; replica launches K1 {counts['flash_fwd']} K4 "
+        f"{counts['paged_decode']} over {counts['served']} calls; `report diff L L` exit {rc}")
+    if rc != 0:
+        raise AssertionError(f"6k(f): `report diff` of a ledger against itself exited {rc}:\n{out}")
+    if any(o is None for o in outcomes) or set(codes) - {200, 429, 504}:
+        raise AssertionError(f"6k(f): a request failed other than by a QoS shed (429) or its deadline (504): {codes}")
+    if not summary["classes"].get("interactive", {}).get("_total", {}).get("goodput"):
+        raise AssertionError("6k(f): no interactive request was answered")
+    if any(o["ttft_s"] is None for o in streams):
+        raise AssertionError("6k(f): a stream answered 200 without a first chunk")
+    if not (counts["flash_fwd"] > 0 and counts["paged_decode"] > 0):
+        raise AssertionError(f"6k(f): a kernel of the replica's path was never launched: {counts}")
+    return dict(requests=len(records), replay_s=replay_s, ready_s=ready_s, codes=codes, classes=classes,
+                total=summary["total"], streams_cut=cut, trace_sha256=sha,
+                launches={"flash_fwd": counts["flash_fwd"], "paged_decode": counts["paged_decode"]})
+
+
+def _ops_autoscale(dev, card_name, probe_dir, probe):
+    """6k(e): an in-process 1-CPU, 0-GPU head; a pending num_gpus=1 K1 task
+    makes the autoscaler launch one GPU node, then drain and terminate it."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler, LocalNodeProvider, NodeType
+    from ray_tpu_torch.core.api import Cluster, init, shutdown
+    from ray_tpu_torch.core.config import Config
+
+    cfg = Config().apply_env()
+    cfg.infeasible_as_pending = True
+    cluster = Cluster(initialize_head=False, config=cfg)
+    cluster.add_node(num_cpus=1)
+    init(address=cluster.address, config=cfg)
+    try:
+        provider = LocalNodeProvider(cluster)
+        auto = Autoscaler([NodeType("h100", {"CPU": 4.0, "GPU": 1.0},
+                                    labels={"accelerator_type": card_name}, max_workers=1)],
+                          provider, idle_timeout_s=1.0)
+
+        @rt.remote(num_gpus=1, runtime_env={"py_modules": [probe_dir]})
+        def pending(seed):
+            import k1probe
+
+            out = k1probe.run(seed)
+            out["node_id"] = rt.get_runtime_context().node_id
+            return out
+
+        ref = pending.remote(OPS_K1_SEED)
+        t0 = time.perf_counter()
+        launched = {}
+        while not launched:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("6k(e): the pending GPU task never made the autoscaler launch a node")
+            time.sleep(0.2)
+            launched = auto.update()["launched"]
+        t_launch = time.perf_counter()
+        (pid,) = provider.non_terminated_nodes()
+        nid = provider.controller_node_id(pid)
+        out = rt.get(ref, timeout=OPS_TIMEOUT_S)
+        task_s = time.perf_counter() - t_launch
+        held = _ops_hold_k1(dev, probe, out, "autoscaled node's task")
+        if out["node_id"] != nid:
+            raise AssertionError(f"6k(e): the task ran on {out['node_id']}, not the launched node {nid}")
+        t1 = time.perf_counter()
+        res, steps = {}, []
+        while not res.get("draining"):
+            if time.perf_counter() - t1 > 60:
+                raise AssertionError(f"6k(e): the idle GPU node was never drained: {res}")
+            time.sleep(0.5)
+            res = auto.update()
+            steps.append("arm" if not res.get("draining") else "drain")
+        res = auto.update()
+        down_s = time.perf_counter() - t1
+        log(f"  autoscaler: launched {launched} {t_launch - t0:.2f} s after the first update; the task ran "
+            f"there in {task_s:.2f} s (node start, worker, K1 included); scale-down {len(steps)} updates "
+            f"(timer armed, drained) + terminate in {down_s:.2f} s: {res}")
+        if res["terminated"] != [pid] or provider.non_terminated_nodes():
+            raise AssertionError(f"6k(e): the drained node was not terminated: {res}")
+        return dict(launched=launched, launch_to_task_s=task_s, scale_down_s=down_s, k1=held,
+                    launches=held["launches"])
+    finally:
+        shutdown()
+        cluster.shutdown()
+
+
+def phase_operator(dev, card, phase6):
+    """Phase 6k (operator-250M): the port's operator surface on the card.
+    (a) `python -m ray_tpu_torch start --head` (the card autodetected),
+    `status` and `list nodes`; (b) K1 in runtime_env tasks; (c) phase 6's
+    engine in a job through `job submit --wait`; (d) the dashboard; (f) the
+    quick seed-0 day replayed against a GPU replica and its run ledger; then
+    `stop` (no recorded pid left alive) and (e) an autoscaled GPU node on an
+    in-process cluster. Returns (stats, {path: launches})."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.accel.gpu import GPU_NAME_LABEL
+    from ray_tpu_torch.core import api as rt_api
+
+    prompts = phase6[0][:OPS_JOB_N]
+    card_name = torch.cuda.get_device_name(0)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_6k_")
+    state_dir = os.path.join(work, "state")
+    env = dict(os.environ, RAYTPU_TORCH_STATE_DIR=state_dir)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (os.path.dirname(os.path.abspath(__file__)),
+                                                    env.get("PYTHONPATH", "")) if p)
+    out, walls = dict(card=card), {}
+    t_phase = time.perf_counter()
+    pids = []
+    try:
+        t0 = time.perf_counter()
+        addr_file = os.path.join(work, "head_addr")
+        _ops_cli(env, "start", "--head", "--port", "0", "--num-cpus", str(OPS_CPUS), "--address-file", addr_file)
+        addr = open(addr_file).read().strip()
+        pids = [json.load(open(os.path.join(state_dir, f)))["pid"] for f in os.listdir(state_dir)
+                if f.startswith("proc-")]
+        rt.init(address=addr)
+        try:
+            nodes = [n for n in rt_api._cluster_state()["nodes"].values() if n["state"] == "ALIVE"]
+            _, status_out, _ = _ops_cli(env, "--address", addr, "status")
+            _, list_out, _ = _ops_cli(env, "--address", addr, "list", "nodes")
+            walls["a_start_s"] = time.perf_counter() - t0
+            gpu_line = [ln.strip() for ln in status_out.splitlines() if ln.strip().startswith("GPU")]
+            log(f"  (a) head pid {pids} at {addr}: {len(nodes)} node, resources {nodes[0]['resources_total']}, "
+                f"card label {nodes[0]['labels'].get(GPU_NAME_LABEL)!r}; `status`: {gpu_line}; `list nodes` "
+                f"shows GPU: {'GPU:' in list_out} ({walls['a_start_s']:.2f} s)")
+            if not (len(nodes) == 1 and nodes[0]["resources_total"].get("GPU") == 1
+                    and nodes[0]["labels"].get(GPU_NAME_LABEL) == card_name):
+                raise AssertionError(f"6k(a): the CLI head does not advertise GPU 1 and {card_name!r}: {nodes}")
+            if not (gpu_line and "GPU:" in list_out and len(pids) == 1):
+                raise AssertionError(f"6k(a): `status` / `list nodes` print no GPU:\n{status_out}\n{list_out}")
+            t0 = time.perf_counter()
+            out["runtime_env"], probe = _ops_runtime_env(rt, dev, work)
+            walls["b_runtime_env_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["job"] = _ops_job(rt, dev, env, addr, work, prompts)
+            walls["c_job_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["dashboard"] = _ops_dashboard(out["job"])
+            walls["d_dashboard_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["replay"] = _ops_replay(rt, env, work)
+            walls["f_replay_s"] = time.perf_counter() - t0
+        finally:
+            rt.shutdown()
+        t0 = time.perf_counter()
+        _, stop_out, _ = _ops_cli(env, "stop")
+        deadline = time.perf_counter() + 30
+        alive = pids
+        while alive and time.perf_counter() < deadline:
+            time.sleep(0.1)
+            alive = [p for p in pids if _pid_alive(p)]
+        walls["a_stop_s"] = time.perf_counter() - t0
+        log(f"  (a) `stop`: {stop_out.strip().splitlines()[-1]}; recorded pids alive after it: {alive} "
+            f"({walls['a_stop_s']:.2f} s)")
+        if alive:
+            raise AssertionError(f"6k(a): `stop` left recorded pids alive: {alive}")
+        pids = []
+        t0 = time.perf_counter()
+        out["autoscaler"] = _ops_autoscale(dev, card_name, os.path.join(work, "mods"), probe)
+        walls["e_autoscaler_s"] = time.perf_counter() - t0
+    finally:
+        if pids:
+            _ops_cli(env, "stop", check=False)
+        shutil.rmtree(work, ignore_errors=True)
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("6k left the runtime up")
+    walls["total_s"] = time.perf_counter() - t_phase
+    out["walls"] = walls
+    log(f"  6k walls: {json.dumps({k: round(v, 2) for k, v in walls.items()})}")
+    launches = {"runtime_env": {"flash_fwd": out["runtime_env"]["launches"]},
+                "job": dict(out["job"]["launches"]),
+                "autoscaler": {"flash_fwd": out["autoscaler"]["launches"]},
+                "replay": dict(out["replay"]["launches"])}
+    return out, launches
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"  # a zombie has exited
+    except OSError:
+        return False
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace the paged engine's steps and a training step into DIR")
@@ -4666,6 +5270,7 @@ def _run(args, dev, rng):
     dag, d_launches = phase_dag(dev, rt_serve["transport"])
     data, db_launches, di_launches = phase_data(dev, card, stats, phase6)
     serve_tp, tp_serve_launches = phase_serve_tp(dev, card, phase6)
+    ops, ops_launches = phase_operator(dev, card, phase6)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
@@ -4677,14 +5282,17 @@ def _run(args, dev, rng):
     # serve_app, dag, data_batch, data_ingest, train, train_plane (K1-K3 in
     # the train workers' processes), train_plane_serve, tune (K1-K3 in the
     # trials' processes), tp_serve (6j: K1/K4 per head shard) and
-    # parallel_train (7j: K1-K3 per slot or microbatch) are the 250M cells
-    # (D 64); serve_mistral7b and train_mistral7b the 7B cells
-    # (D 128); serve_gemma2b and train_gemma2b the 2B cells (D 256).
+    # parallel_train (7j: K1-K3 per slot or microbatch), and 6k's
+    # runtime_env (K1 in the runtime_env tasks' workers), job (K1/K4 in the
+    # job's entrypoint), autoscaler (K1 on the autoscaled node's worker) and
+    # replay (K1/K4 in the day's replica) are the 250M cells (D 64);
+    # serve_mistral7b and train_mistral7b the 7B cells (D 128);
+    # serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
              "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "data_batch": db_launches,
              "data_ingest": di_launches, "train": t_launches, "train_plane": tp_launches,
              "train_plane_serve": tps_launches, "tune": tn_launches, "tp_serve": tp_serve_launches,
-             "parallel_train": tpar_launches,
+             "parallel_train": tpar_launches, **ops_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -4729,6 +5337,7 @@ def _run(args, dev, rng):
     log(json.dumps({"tune": tune_stats}))
     log(json.dumps({"rl": rl}))
     log(json.dumps({"engine_tp": serve_tp}))
+    log(json.dumps({"operator": ops}))
     log(json.dumps({"train_parallel": train_par}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@ identical per-rule injection sequence, so every chaos failure replays from
 its logged ``(seed, schedule)`` pair. See ``ray_tpu_torch/chaos/plan.py`` for the
 mechanism and ``sites.py`` for the site catalog. The reference's
 invariant-checked scenario runner and its CLI (``scenarios.py``) are not
-ported yet (ROADMAP Queue 1 item 2: the CLI, dashboard and job).
+ported yet (ROADMAP Queue 1 item 2c: chaos/scenarios.py): ``python -m
+ray_tpu_torch chaos`` parses the reference's arguments and raises.
 """
 from ray_tpu_torch.chaos.plan import (
     ChaosError,
@@ -27,14 +28,21 @@ from ray_tpu_torch.chaos.sites import SITES, catalog
 
 
 _CLI_DEFERRED = (
-    "the chaos scenario runner and its CLI are not ported yet "
-    "(ROADMAP Queue 1 item 2: the CLI, dashboard and job)"
+    "the chaos scenario runner is not ported yet "
+    "(ROADMAP Queue 1 item 2c: chaos/scenarios.py)"
 )
 
 
 def add_chaos_parser(sub) -> None:
-    """CLI hook of the reference; the port has no CLI yet."""
-    raise NotImplementedError(_CLI_DEFERRED)
+    """The reference's `chaos` arguments; ``cmd_chaos`` raises until the
+    scenario runner lands."""
+    cp = sub.add_parser("chaos", help="seeded fault-injection scenario runner")
+    csub = cp.add_subparsers(dest="chaos_cmd", required=True)
+    crun = csub.add_parser("run", help="run one scenario in a fresh in-process cluster")
+    crun.add_argument("scenario")
+    crun.add_argument("--seed", type=int, default=0)
+    crun.add_argument("--quick", action="store_true", help="smaller workloads")
+    csub.add_parser("list", help="scenarios + the fault-site catalog")
 
 
 def cmd_chaos(args) -> int:

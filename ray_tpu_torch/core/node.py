@@ -439,7 +439,7 @@ class NodeDaemon:
 
             cmd = _re.container_spawn_command(
                 container, container["engine"], env, self.session_dir, repo_root,
-                cwd=cwd,
+                cwd=cwd, gpus=self.resources.get("GPU", 0) > 0,
             )
         proc = subprocess.Popen(
             cmd,

@@ -455,6 +455,11 @@ def make_prefix_router(tokenizer=None, page_size: int = 128):
     return policy
 
 
+# Default instance (no tokenizer: char-space page proxy at the default
+# page_size of 128 tokens ~ 512 chars).
+openai_prefix_router = make_prefix_router()
+
+
 def build_openai_app(model_config: dict, engine_config: Optional[dict] = None,
                      tokenizer: Optional[str] = None, model_name: str = "ray-tpu-llm",
                      num_replicas: int = 1, max_ongoing_requests: Optional[int] = None,

@@ -419,15 +419,14 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig, segment_ids=Non
 
 
 def forward(params: dict, tokens, cfg: TransformerConfig, segment_ids=None, positions=None):
-    """tokens [B, S] int -> logits [B, S, vocab] in the activation dtype.
+    """tokens [B, S] int -> (logits [B, S, vocab] in the activation dtype,
+    summed MoE aux loss).
 
     Packed sequences: pass ``segment_ids`` [B, S] and per-segment positions.
     Attention follows ``cfg.attention_impl``; with "reference" this is the
-    plain path, the oracle the serving engine is held against. Unlike the
-    JAX ``forward`` it returns the logits alone, without the MoE aux loss
-    (``forward_hidden`` returns that)."""
-    x, _ = forward_hidden(params, tokens, cfg, segment_ids, positions)
-    return linear(x, params["lm_head"])
+    plain path, the oracle the serving engine is held against."""
+    x, aux = forward_hidden(params, tokens, cfg, segment_ids, positions)
+    return linear(x, params["lm_head"]), aux
 
 
 # ---------------------------------------------------------------------------
@@ -698,16 +697,30 @@ def _pipelined_loss(params: dict, batch: dict, cfg: TransformerConfig, mesh, n_m
 
 
 class Transformer(nn.Module):
-    """The parameter tree as an ``nn.Module``: stacked layer tensors in a
-    ``ParameterDict``, ``forward(tokens)`` the functional ``forward``."""
+    """The reference's convenience wrapper over the functional API
+    (``init``, ``apply``, ``param_axes``) and, once it holds a tree, that
+    tree as an ``nn.Module``: stacked layer tensors in a ``ParameterDict``,
+    ``forward(tokens)`` the functional ``forward``."""
 
-    def __init__(self, cfg: TransformerConfig, params: dict):
+    def __init__(self, cfg: TransformerConfig, params: dict | None = None):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(params["embed"])
-        self.layers = nn.ParameterDict({k: nn.Parameter(v) for k, v in params["layers"].items()})
-        self.final_norm = nn.Parameter(params["final_norm"])
-        self.lm_head = nn.Parameter(params["lm_head"])
+        if params is not None:
+            self.embed = nn.Parameter(params["embed"])
+            self.layers = nn.ParameterDict({k: nn.Parameter(v) for k, v in params["layers"].items()})
+            self.final_norm = nn.Parameter(params["final_norm"])
+            self.lm_head = nn.Parameter(params["lm_head"])
+
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        return init_params(self.cfg, generator, device)
+
+    def apply(self, params: dict, tokens):
+        logits, _ = forward(params, tokens, self.cfg)
+        return logits
+
+    @property
+    def param_axes(self) -> dict:
+        return param_logical_axes(self.cfg)
 
     def params(self) -> dict:
         """The nested tree (the same tensors, not copies)."""

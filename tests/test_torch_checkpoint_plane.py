@@ -1,10 +1,10 @@
 """The port's checkpoint plane on port clusters: the cases of
-``tests/test_checkpoint_plane.py`` but four, plus the port's LLMServer
+``tests/test_checkpoint_plane.py`` but two, plus the port's LLMServer
 hot-swap. Left out for ROADMAP Queue 1 item 2c: ``test_ckpt_chaos_scenario_
 smoke`` and ``test_ckpt_scenario_replays_identically`` (``chaos/
-scenarios.py``), ``test_list_checkpoints_cli`` (``scripts.py``) and the
-dashboard half of ``test_registry_state_api_and_dashboard`` (its state-API
-half is ``test_registry_state_api``). ``test_llm_server_weights_channel_
+scenarios.py``). ``test_registry_state_api_and_dashboard`` is split in two:
+``test_registry_state_api`` and ``test_registry_on_dashboard``.
+``test_llm_server_weights_channel_
 swaps_to_published_manifest`` is the port's own: an LLMServer on the CPU
 swaps to a published manifest and decodes as an engine built on that tree.
 
@@ -621,3 +621,47 @@ def _torch_tree(tree):
     if isinstance(tree, dict):
         return {k: _torch_tree(v) for k, v in tree.items()}
     return torch.from_numpy(np.asarray(tree))
+
+
+def test_registry_on_dashboard(ckpt_cluster, tmp_path):
+    """The dashboard half of the reference's
+    ``test_registry_state_api_and_dashboard``: ``/api/checkpoints`` lists
+    the committed save of a channel, filtered by status."""
+    import urllib.request
+
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+
+    saver = ckpt.AsyncSaver(str(tmp_path), chunk_size=2048, channel="dashtest")
+    try:
+        m1 = saver.save(1, _tree(1))
+    finally:
+        saver.close()
+    port = start_dashboard(0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/checkpoints?channel=dashtest&status=committed",
+                timeout=30) as resp:
+            body = json.loads(resp.read())
+        assert [c["ckpt_id"] for c in body["checkpoints"]] == [m1.ckpt_id]
+    finally:
+        stop_dashboard()
+
+
+def test_list_checkpoints_cli(ckpt_cluster, tmp_path, capsys, monkeypatch):
+    import argparse
+
+    from ray_tpu_torch import scripts
+
+    saver = ckpt.AsyncSaver(str(tmp_path), chunk_size=2048, channel="clitest")
+    try:
+        m = saver.save(7, _tree(7))
+    finally:
+        saver.close()
+    # The session is already this process's driver; skip the CLI redial.
+    monkeypatch.setattr(scripts, "_connect_driver", lambda addr: rt)
+    scripts.cmd_list(argparse.Namespace(
+        address=None, kind="checkpoints", state=None, fn="clitest",
+        node=None, job=None, limit=50))
+    out = capsys.readouterr().out
+    assert m.ckpt_id in out and "committed" in out and "dedup" in out
+

@@ -376,22 +376,20 @@ def test_placement_group_and_gpu_resource(port_rt):
         rt.get(needs_gpu.remote(), timeout=30)
 
 
-def _defer_runtime_env():
-    @rt.remote(runtime_env={"env_vars": {"A": "1"}})
-    def f():
-        return 1
-
-    f.remote()
-
-
 def _defer_chaos_cli():
     from ray_tpu_torch import chaos
 
     chaos.cmd_chaos(None)
 
 
-@pytest.mark.parametrize("call", [_defer_runtime_env, _defer_chaos_cli],
-                         ids=["runtime_env", "chaos_cli"])
+def _defer_lint_cli():
+    from ray_tpu_torch.__main__ import main
+
+    main(["lint"])
+
+
+@pytest.mark.parametrize("call", [_defer_chaos_cli, _defer_lint_cli],
+                         ids=["chaos_cli", "lint_cli"])
 def test_deferred_parts_raise_naming_the_roadmap(port_rt, call):
     """What the port leaves for later raises a typed NotImplementedError that
     names its ROADMAP item; nothing is silently skipped."""

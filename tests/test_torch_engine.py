@@ -215,3 +215,99 @@ def test_flash_head_dim_is_checked_when_built(head_dim):
     init_state, _ = make_train_step(cfg)
     with pytest.raises(ValueError, match=f"head_dim {head_dim}"):
         init_state(torch.Generator().manual_seed(0), device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# The engine cases of tests/test_llm.py on the port's engine (device="cpu";
+# its CFG with torch's fp32). Their eos case is test_eos_stops_generation
+# above, in a stronger form.
+# ---------------------------------------------------------------------------
+
+LLM_CFG = TransformerConfig(**SMALL, dtype=torch.float32, attention_impl="reference")
+
+
+def _naive_greedy(params, prompt, n):
+    from ray_tpu_torch.models.transformer import forward
+
+    toks = list(map(int, prompt))
+    out = []
+    with torch.no_grad():
+        for _ in range(n):
+            logits, _ = forward(params, torch.tensor([toks], dtype=torch.long), LLM_CFG)
+            nxt = int(torch.argmax(logits[0, -1]))
+            toks.append(nxt)
+            out.append(nxt)
+    return out
+
+
+@pytest.fixture(scope="module")
+def engine():
+    return LLMEngine(LLM_CFG, engine_config=EngineConfig(max_slots=4, max_seq=128, prefill_buckets=(16, 32, 64)),
+                     device="cpu")
+
+
+@pytest.mark.slow  # heavy battery; tier-1 budget
+def test_cached_decode_matches_full_forward(engine):
+    """Queue 3 entry 7's pin: ``forward`` returns ``(logits, aux)``."""
+    prompt = np.array([5, 17, 42, 7, 23], np.int32)
+    want = _naive_greedy(engine.params, prompt, 12)
+    got = engine.generate(prompt, max_tokens=12)
+    assert got["tokens"] == want
+    assert got["ttft_s"] is not None and got["ttft_s"] > 0
+
+
+def test_continuous_batching_matches_solo(engine):
+    """A request joining mid-decode must not perturb an in-flight one, and
+    both must equal their solo outputs (slot isolation)."""
+    p1 = np.array([3, 1, 4, 1, 5, 9, 2, 6], np.int32)
+    p2 = np.array([2, 7, 1, 8], np.int32)
+    solo1 = engine.generate(p1, max_tokens=10)["tokens"]
+    solo2 = engine.generate(p2, max_tokens=10)["tokens"]
+
+    engine.add_request("a", p1, 10)
+    results = {}
+    for _ in range(3):  # a starts decoding alone
+        for rid, ev in engine.step().items():
+            if ev.get("finished"):
+                results[rid] = ev["tokens"]
+    engine.add_request("b", p2, 10)  # b joins mid-flight
+    while engine.has_work():
+        for rid, ev in engine.step().items():
+            if ev.get("finished"):
+                results[rid] = ev["tokens"]
+    assert results["a"] == solo1
+    assert results["b"] == solo2
+
+
+def test_slot_reuse_after_finish(engine):
+    """More requests than slots: queueing + slot recycling must preserve
+    per-request outputs."""
+    prompts = [np.arange(3 + i, dtype=np.int32) % 97 for i in range(9)]
+    solos = [engine.generate(p, max_tokens=6)["tokens"] for p in prompts]
+    for i, p in enumerate(prompts):
+        engine.add_request(f"r{i}", p, 6)
+    results = {}
+    while engine.has_work():
+        for rid, ev in engine.step().items():
+            if ev.get("finished"):
+                results[rid] = ev["tokens"]
+    for i in range(9):
+        assert results[f"r{i}"] == solos[i], i
+
+
+def test_paged_decode_matches_across_pool_layouts():
+    """Same request, different page pools (dense parity vs tight pool with
+    non-trivial page scatter): identical greedy tokens."""
+    prompt = [9, 8, 7, 6, 5, 4, 3, 2, 1]
+    outs = []
+    for total_pages in (0, 12):
+        ec = EngineConfig(max_slots=3, max_seq=128, kv_layout="paged", page_size=16,
+                          prefill_buckets=(16,), total_pages=total_pages,
+                          decode_block=4)
+        eng = LLMEngine(LLM_CFG, engine_config=ec, device="cpu")
+        # Fragment the free list so page tables are non-contiguous.
+        eng.generate([1, 2], max_tokens=3)
+        eng.generate([3, 4, 5], max_tokens=5)
+        outs.append(eng.generate(prompt, max_tokens=12)["tokens"])
+    assert outs[0] == outs[1]
+

@@ -10,7 +10,9 @@ collective, ckpt and elastic packages imported in the driver too), a Tune
 trial or an RL env runner (tune and rl imported in the driver too, without
 gymnasium). The parallel package, the ring and Ulysses attentions and the
 sharded train program import neither, and neither does a tensor-parallel
-serve replica."""
+serve replica. The operator surface (runtime_env, job, autoscaler, the GCE
+GPU provider, dashboard, the start/stop CLI and ``__main__``, the run
+ledger and replay) imports neither, and no torch."""
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +30,9 @@ import ray_tpu_torch.serve, ray_tpu_torch.scale, ray_tpu_torch.serve.controller,
 import ray_tpu_torch.serve.protocol
 import ray_tpu_torch.dag, ray_tpu_torch.dag.runtime, ray_tpu_torch.chaos.invariants
 import ray_tpu_torch.data, ray_tpu_torch.util.dtypes
+import ray_tpu_torch.core.runtime_env, ray_tpu_torch.job, ray_tpu_torch.autoscaler, ray_tpu_torch.gcp
+import ray_tpu_torch.dashboard, ray_tpu_torch.scripts, ray_tpu_torch.__main__, ray_tpu_torch.obs.ledger
+import ray_tpu_torch.replay
 assert "torch" not in sys.modules, "a stdlib-only module imported torch"
 assert "jax" not in sys.modules, "the runtime imported jax"
 leaked = [m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")]

@@ -64,7 +64,7 @@ def _logits(jdt, tdt, seed):
     jp, tp = _params(jc, tc, seed)
     toks = np.random.default_rng(seed).integers(0, SMALL["vocab_size"], (2, 48)).astype(np.int32)
     want, _ = jt.forward(jp, jnp.asarray(toks), jc)
-    got = tt.forward(tp, torch.from_numpy(toks).long(), tc)
+    got, _ = tt.forward(tp, torch.from_numpy(toks).long(), tc)
     return got.float().numpy(), np.asarray(want).astype(np.float32)
 
 
@@ -90,7 +90,25 @@ def test_module_and_init_shapes():
     assert shapes == tt.param_shapes(tc)
     toks = torch.arange(10)[None] % tc.vocab_size
     with torch.no_grad():
-        np.testing.assert_array_equal(model(toks).numpy(), tt.forward(model.params(), toks, tc).numpy())
+        np.testing.assert_array_equal(model(toks)[0].numpy(), tt.forward(model.params(), toks, tc)[0].numpy())
+
+
+def test_transformer_wrapper_apply_matches_jax():
+    """The reference's OO wrapper: ``Transformer(cfg)`` with no tree,
+    ``init``, ``apply`` (the logits alone) and ``param_axes``; ``apply``
+    against ``ray_tpu``'s on converted weights at fp32's 1e-5."""
+    jc, tc = _cfgs(jnp.float32, torch.float32)
+    jp, tp = _params(jc, tc, seed=3)
+    toks = np.random.default_rng(3).integers(0, SMALL["vocab_size"], (2, 40)).astype(np.int32)
+    want = jt.Transformer(jc).apply(jp, jnp.asarray(toks))
+    model = tt.Transformer(tc)
+    got = model.apply(tp, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    tree = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), tree) == tt.param_shapes(tc)
+    assert model.param_axes == tt.param_logical_axes(tc)
+    assert jax.tree.structure(model.param_axes, is_leaf=lambda x: isinstance(x, tuple)) == \
+        jax.tree.structure(jt.Transformer(jc).param_axes, is_leaf=lambda x: isinstance(x, tuple))
 
 
 def test_convert_rejects_wrong_shapes():

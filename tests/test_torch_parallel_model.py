@@ -105,7 +105,7 @@ def test_strategy_named_composition():
 def test_forward_shapes_and_loss():
     params = init_params(CFG, torch.Generator().manual_seed(0), device="cpu")
     tokens = _tokens(1, (2, 16))
-    logits = forward(params, tokens, CFG)
+    logits, _ = forward(params, tokens, CFG)
     assert logits.shape == (2, 16, CFG.vocab_size)
     loss = cross_entropy_loss(params, {"tokens": tokens}, CFG)
     assert torch.isfinite(loss)
@@ -159,8 +159,9 @@ def test_moe_forward():
     from ray_tpu_torch.models.transformer import forward_hidden
 
     tokens = _tokens(1, (2, 16))
-    logits = forward(params, tokens, cfg)
-    _, aux = forward_hidden(params, tokens, cfg)
+    logits, aux = forward(params, tokens, cfg)
+    _, aux_hidden = forward_hidden(params, tokens, cfg)
+    assert torch.equal(aux, aux_hidden)
     assert logits.shape == (2, 16, cfg.vocab_size)
     assert torch.isfinite(aux) and float(aux) > 0
 

@@ -300,3 +300,319 @@ def test_hit_respects_per_request_sampling():
     b = eng.generate(prompt, max_tokens=16, sampling=hot)
     assert eng.prefix_cache_stats["hits"] == 2
     assert a["tokens"] != b["tokens"]
+
+
+# ---------------------------------------------------------------------------
+# tests/test_prefix_cache.py's cases on the port's engine alone (its CFG in
+# torch's fp32, device="cpu"); test_hit_respects_per_request_sampling is
+# above. The three that spy on the reference's ``_prefill`` count
+# dispatches through the port's hooks (_count_prefills above: a tail
+# prefill is ("tail", its padded length)).
+# ---------------------------------------------------------------------------
+
+REF_CFG = TransformerConfig(
+    vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    d_ff=128, max_seq_len=1024, dtype=torch.float32, attention_impl="reference",
+)
+
+
+def _engine(**kw):
+    defaults = dict(max_slots=4, max_seq=1024, prefill_buckets=(64, 512),
+                    kv_layout="paged", page_size=64, prefix_cache=True)
+    defaults.update(kw)
+    return LLMEngine(REF_CFG, engine_config=EngineConfig(**defaults), device="cpu")
+
+
+def test_hit_is_exact_and_skips_prefill():
+    """A cache hit produces byte-identical greedy output with ZERO prefill
+    dispatches (the whole point: prompt KV comes from the cache)."""
+    eng = _engine()
+    prompt = np.arange(1, 70, dtype=np.int32) % 97
+
+    cold = eng.generate(prompt, max_tokens=8)
+    # 69 tokens @ page 64: chain entry for the 64-token page-aligned prefix
+    # + the full-prompt entry, sharing page 0 -> 2 distinct cached pages.
+    assert eng.prefix_cache_stats == {"hits": 0, "partial_hits": 0, "misses": 1,
+                                      "entries": 2, "cached_pages": 2}
+    calls = _count_prefills(eng)
+    warm = eng.generate(prompt, max_tokens=8)
+    assert warm["tokens"] == cold["tokens"]
+    assert calls == [], f"cache hit still dispatched prefill: {calls}"
+    assert eng.prefix_cache_stats["hits"] == 1
+    assert warm["ttft_s"] is not None and warm["ttft_s"] > 0
+
+
+def test_lru_eviction_under_page_pressure():
+    """A tight page pool evicts cached prefixes rather than starving
+    admission; everything still completes correctly."""
+    # Pool sized so ~2 cached prompts exhaust it.
+    eng = _engine(max_slots=2, total_pages=9)
+    prompts = [np.arange(1 + i, 66 + i, dtype=np.int32) % 97 for i in range(4)]
+    outs = [eng.generate(p, max_tokens=4)["tokens"] for p in prompts]
+    stats = eng.prefix_cache_stats
+    assert stats["cached_pages"] <= 8
+    # Re-running the LAST prompt (most recently cached) still hits.
+    again = eng.generate(prompts[-1], max_tokens=4)
+    assert again["tokens"] == outs[-1]
+
+
+@pytest.mark.slow  # heavy battery; tier-1 budget
+def test_cold_warm_ttft_gap():
+    """Cache-hit TTFT beats cold TTFT (the routing payoff): prefilling a
+    ~500-token prompt costs real compute; the hit replaces it with a page
+    copy. Both paths pre-warmed so compile time is excluded."""
+    eng = _engine()
+    eng.warmup(buckets=(512,))
+    warm_decoy = np.arange(3, 500, dtype=np.int32) % 97
+    eng.generate(warm_decoy, max_tokens=2)  # warm every program incl. copy
+    eng.generate(warm_decoy, max_tokens=2)
+
+    prompt = np.arange(5, 500, dtype=np.int32) % 97
+    colds, warms = [], []
+    for trial in range(3):
+        p = (prompt + trial) % 97
+        colds.append(eng.generate(p, max_tokens=2)["ttft_s"])
+        warms.append(eng.generate(p, max_tokens=2)["ttft_s"])
+    cold, warm = min(colds), min(warms)
+    assert warm < cold, f"cache-hit ttft {warm:.4f}s not below cold {cold:.4f}s"
+
+
+def test_partial_prefix_tail_prefill_matches_cold():
+    """The canonical shared-system-prompt workload: a prompt EXTENDING a
+    cached page-aligned prefix prefills only the tail, attending over the
+    cached pages — greedy output is identical to a cold engine's, and no
+    full-length prefill is dispatched."""
+    sys_prompt = (np.arange(7, 7 + 128, dtype=np.int32) % 96) + 1  # 2 pages
+    q1 = np.concatenate([sys_prompt, np.array([3, 1, 4, 1, 5], np.int32)])
+    q2 = np.concatenate([sys_prompt, np.array([2, 7, 1, 8], np.int32)])
+
+    warm_eng = _engine()
+    warm_eng.generate(q1, max_tokens=8)  # populates chain entries for sys
+    calls = _count_prefills(warm_eng)
+    warm = warm_eng.generate(q2, max_tokens=8)
+    assert warm_eng.prefix_cache_stats["partial_hits"] == 1
+    assert all(c[0] == "tail" for c in calls), f"partial hit ran full prefill: {calls}"
+    assert calls and calls[0][1] == 64, f"tail bucket should be 64: {calls}"
+
+    cold_eng = _engine()  # same seed -> same params
+    cold = cold_eng.generate(q2, max_tokens=8)
+    assert warm["tokens"] == cold["tokens"], (
+        f"partial-prefix output diverged: {warm['tokens']} vs {cold['tokens']}"
+    )
+
+
+def test_partial_prefix_page_aligned_extension():
+    """A prompt that extends the cached prefix by exactly whole pages (the
+    new length is page-aligned and fully covered by a chain entry of an
+    earlier LONGER prompt's prefix) restarts decode with no prefill."""
+    base = (np.arange(11, 11 + 200, dtype=np.int32) % 96) + 1  # 3 full pages + tail
+    eng = _engine()
+    eng.generate(base, max_tokens=4)
+    calls = _count_prefills(eng)
+    # First 128 tokens = exactly 2 cached full pages -> exact-length chain
+    # hit: decode re-derives position 127, no prefill of any kind.
+    out = eng.generate(base[:128], max_tokens=4)
+    assert calls == [], f"page-aligned covered prompt dispatched prefill: {calls}"
+    assert eng.prefix_cache_stats["hits"] == 1
+    cold = _engine().generate(base[:128], max_tokens=4)
+    assert out["tokens"] == cold["tokens"]
+
+
+def test_shared_page_refcounts_and_conservation():
+    """Chain entries share pages; eviction frees a page only when its last
+    referencing entry goes, and no page is ever leaked or double-freed."""
+    eng = _engine(max_slots=2, total_pages=12)
+    total = eng.ec.total_pages - 1  # page 0 reserved
+
+    def conserved():
+        held = sum(len(s.pages) for s in eng.slots if s is not None)
+        return len(eng.free_pages) + len(eng._page_refs) + held == total
+
+    p1 = (np.arange(1, 1 + 150, dtype=np.int32) % 96) + 1
+    eng.generate(p1, max_tokens=4)
+    assert conserved()
+    stats = eng.prefix_cache_stats
+    assert stats["entries"] == 3  # 64-prefix, 128-prefix, full 150
+    assert stats["cached_pages"] == 3  # 3 distinct pages, shared by chain
+    # Page 0 of the chain is referenced by all three entries.
+    first_page = next(iter(eng._prefix_cache.values()))["pages"][0]
+    assert eng._page_refs[first_page] == 3
+    # Evict one entry's worth: LRU entry (the 64-token prefix) goes first,
+    # but its page is shared -> nothing frees until all referents go.
+    before_free = len(eng.free_pages)
+    eng._evict_prefix_cache(1)
+    assert conserved()
+    assert len(eng.free_pages) >= before_free + 1
+    # Full drain.
+    eng._evict_prefix_cache(100)
+    assert not eng._prefix_cache and not eng._page_refs
+    assert len(eng.free_pages) == total
+    assert conserved()
+
+
+def test_partial_hit_retire_shares_prefix_pages():
+    """N requests extending one system prompt must not cache N copies of
+    it: a retiring partial-hit slot's new chain entries reference the
+    ALREADY-cached prefix pages, and the slot's duplicate copies free."""
+    sys_prompt = (np.arange(7, 7 + 128, dtype=np.int32) % 96) + 1  # 2 pages
+    eng = _engine()
+    q1 = np.concatenate([sys_prompt, np.array([3, 1, 4, 1, 5], np.int32)])
+    eng.generate(q1, max_tokens=4)
+    assert eng.prefix_cache_stats["cached_pages"] == 3  # 2 sys + 1 tail
+    for t in range(3):
+        q = np.concatenate([sys_prompt, np.array([10 + t, 2, 6], np.int32)])
+        eng.generate(q, max_tokens=4)
+    stats = eng.prefix_cache_stats
+    assert stats["partial_hits"] == 3
+    # Each extension adds ONE page (its own tail), never a sys copy.
+    assert stats["cached_pages"] == 6, stats
+    # The shared system-prompt pages are referenced by every full entry.
+    first = next(iter(eng._prefix_cache.values()))["pages"][0]
+    assert eng._page_refs[first] >= 4
+
+
+@pytest.mark.slow  # heavy battery; tier-1 budget
+def test_admission_does_not_evict_its_own_prefix():
+    """Under page pressure a request must not evict the very entry it is
+    about to hit (lookup now precedes eviction, hit entry protected)."""
+    # Pool: 12 usable pages. Prompt ~150 tokens -> needs 4 pages/request
+    # (prompt 3 + budget slack). Decoy fills the cache so admission must
+    # evict; the protected entry must survive and the request must hit.
+    eng = _engine(max_slots=1, total_pages=13, prefill_buckets=(64, 256))
+    p1 = (np.arange(1, 1 + 150, dtype=np.int32) % 96) + 1
+    decoy = (np.arange(50, 50 + 150, dtype=np.int32) % 96) + 1
+    eng.generate(p1, max_tokens=4)
+    eng.generate(decoy, max_tokens=4)
+    # Cache now holds both prompts' chains; a re-run of p1 needs eviction
+    # room but must still hit p1's own entry.
+    out = eng.generate(p1, max_tokens=4)
+    assert eng.prefix_cache_stats["hits"] >= 1, eng.prefix_cache_stats
+    cold = _engine().generate(p1, max_tokens=4)
+    assert out["tokens"] == cold["tokens"]
+
+
+@pytest.mark.slow  # heavy battery; tier-1 budget
+def test_partial_hit_ttft_beats_cold():
+    """Tail prefill over cached pages is measurably cheaper than a cold
+    full prefill (the routing payoff for shared system prompts). Programs
+    pre-warmed so compile time is excluded."""
+    eng = _engine()
+    eng.warmup(buckets=(512,))
+    sys_prompt = (np.arange(9, 9 + 448, dtype=np.int32) % 96) + 1  # 7 pages
+    tails = [np.array([3 + t, 1, 4], np.int32) for t in range(8)]
+    # Warm every program variant (full 512 prefill, tail-64 prefill, copy).
+    eng.generate(np.concatenate([sys_prompt, tails[6]]), max_tokens=2)
+    eng.generate(np.concatenate([sys_prompt, tails[7]]), max_tokens=2)
+    colds, warms = [], []
+    for t in range(3):
+        shifted = ((sys_prompt + 17 * (t + 1)) % 96) + 1  # new sys -> cold
+        colds.append(eng.generate(
+            np.concatenate([shifted, tails[t]]), max_tokens=2)["ttft_s"])
+        warms.append(eng.generate(
+            np.concatenate([shifted, tails[t + 3]]), max_tokens=2)["ttft_s"])
+    assert eng.prefix_cache_stats["partial_hits"] >= 4
+    cold, warm = min(colds), min(warms)
+    assert warm < cold, f"partial-hit ttft {warm:.4f}s not below cold {cold:.4f}s"
+
+
+def test_dense_layout_rejects_prefix_cache():
+    with pytest.raises(ValueError):
+        LLMEngine(REF_CFG, engine_config=EngineConfig(
+            max_slots=2, max_seq=1024, kv_layout="dense", prefix_cache=True), device="cpu")
+
+
+def test_openai_prefix_router_keys():
+    from ray_tpu_torch.llm.openai import openai_prefix_router
+    from ray_tpu_torch.serve.proxy import Request
+    import json
+
+    def req(body):
+        return Request("POST", "/v1/completions", {}, {}, json.dumps(body).encode())
+
+    long_prefix = "shared conversation history " * 20  # > 256 chars
+    a = openai_prefix_router(req({"prompt": long_prefix + "question one"}))
+    b = openai_prefix_router(req({"prompt": long_prefix + "another question"}))
+    c = openai_prefix_router(req({"prompt": "totally different"}))
+    assert a and a == b, "same 256-char prefix must share a key"
+    assert c != a
+    m = openai_prefix_router(req({"messages": [{"role": "user", "content": "hi"}]}))
+    assert m and m != a
+    assert openai_prefix_router(req({"no": "prompt"})) == ""
+
+
+def test_tokenized_router_keys_on_first_page():
+    """With a tokenizer, the affinity key is the digest of the first
+    page_size TOKENS — exactly the engine's first chain-digest boundary —
+    so page-cache-compatible requests co-locate and others spread."""
+    import json
+
+    from ray_tpu_torch.llm.openai import make_prefix_router
+    from ray_tpu_torch.llm.tokenizer import load_tokenizer
+    from ray_tpu_torch.serve.proxy import Request
+
+    tok = load_tokenizer(None)
+    policy = make_prefix_router(tok, page_size=8)
+
+    def req(prompt):
+        return Request("POST", "/v1/completions", {}, {},
+                       json.dumps({"prompt": prompt}).encode())
+
+    shared = "a shared system prompt that spans well past eight tokens of text"
+    a = policy(req(shared + " question one"))
+    b = policy(req(shared + " other question"))
+    assert a and a == b, "first-token-page sharers must co-locate"
+    # Divergence INSIDE the first page -> different keys.
+    c = policy(req("b shared system prompt that spans well past eight tokens"))
+    assert c != a
+
+
+def test_affinity_key_sticks_and_proxy_header_routes():
+    import json
+    import socket
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    rt.init(num_cpus=8)
+    try:
+        @serve.deployment(num_replicas=2, max_ongoing_requests=8)
+        class Who:
+            def __call__(self, request):
+                import os
+                return {"pid": os.getpid()}
+
+            def pid(self):
+                import os
+                return os.getpid()
+
+        serve.run(Who.bind(), name="who", route_prefix="/who")
+        h = serve.get_deployment_handle("Who", "who")
+        # Handle-level affinity: same key -> same replica, across calls.
+        pids_a = {h.options(affinity_key="conv-a").pid.remote().result(timeout=60)
+                  for _ in range(6)}
+        assert len(pids_a) == 1
+        # Proxy header affinity: x-affinity-key pins the replica.
+        port = serve.http_port()
+
+        def post(key):
+            body = b"{}"
+            s = socket.create_connection(("127.0.0.1", port), timeout=60)
+            s.sendall((f"POST /who HTTP/1.1\r\nhost: x\r\nx-affinity-key: {key}\r\n"
+                       f"content-length: {len(body)}\r\nconnection: close\r\n\r\n"
+                       ).encode() + body)
+            raw = b""
+            while True:
+                chunk = s.recv(65536)
+                if not chunk:
+                    break
+                raw += chunk
+            s.close()
+            return json.loads(raw.split(b"\r\n\r\n", 1)[1])["pid"]
+
+        pids = {post("session-1") for _ in range(5)}
+        assert len(pids) == 1, f"header affinity bounced replicas: {pids}"
+        serve.delete("who")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+

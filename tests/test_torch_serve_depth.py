@@ -1,8 +1,7 @@
 """The port's serve depth: model multiplexing (@serve.multiplexed + sticky
 routing), binary RPC ingress (gRPC-proxy equivalent), the cases of
 ``tests/test_serve_depth.py`` on a port cluster, and the port's device seam:
-a replica's ``num_gpus`` share is its ``GPU`` demand. (The reference file's
-job-wait case needs ``job/``, which the port does not have yet.)"""
+a replica's ``num_gpus`` share is its ``GPU`` demand."""
 import pickle
 import socket
 import time
@@ -141,3 +140,18 @@ def test_replica_gpu_share_is_its_resource_demand(serve_cluster):
     while time.time() < deadline and rt.available_resources().get("GPU") != 1.0:
         time.sleep(0.1)
     assert rt.available_resources().get("GPU") == 1.0
+
+
+def test_job_wait_event_driven(serve_cluster):
+    """wait_until_finished returns promptly after the entrypoint exits (one
+    blocking supervisor call, no 250ms polling)."""
+    from ray_tpu_torch.job.manager import JobSubmissionClient
+
+    client = JobSubmissionClient()
+    jid = client.submit_job("sleep 0.5; echo done")
+    t0 = time.time()
+    status = client.wait_until_finished(jid, timeout_s=60)
+    assert status == "SUCCEEDED"
+    assert time.time() - t0 < 30
+    assert "done" in client.get_job_logs(jid)
+

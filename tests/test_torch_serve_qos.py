@@ -1,8 +1,11 @@
-"""The port's QoS plane in serve: the cases of ``tests/test_qos.py`` from
-its router section on (the handle, the replica gate, the cluster hops) on
-the port's serve.
+"""The port's QoS plane: every case of ``tests/test_qos.py`` on
+``ray_tpu_torch.qos`` and the port's serve.
 
 Layers covered:
+  * unit — RequestContext wire codec, FairWaitQueue policy (FIFO within a
+    tenant, strict class priority, DRR tenant fairness), the AIMD admission
+    controller (converges under standing delay, recovers after, never sheds
+    the protected class);
   * unit — the replica's deadline gate and cancel event;
   * router — the handle's fair admission queue under concurrent admits (the
     Condition.notify-scrum regression) and deadline expiry while queued;
@@ -24,6 +27,8 @@ import pytest
 
 import ray_tpu_torch as rt
 from ray_tpu_torch import qos, serve
+from ray_tpu_torch.qos import AdmissionController, FairWaitQueue, Waiter
+from ray_tpu_torch.qos.context import to_wire
 from ray_tpu_torch.core import api as port_api
 from ray_tpu_torch.util import metrics as _metrics
 
@@ -39,6 +44,172 @@ def _counter_value(name: str, **tags) -> float:
 # ---------------------------------------------------------------------------
 # RequestContext + wire codec
 # ---------------------------------------------------------------------------
+
+def test_context_wire_roundtrip_and_nesting():
+    assert qos.current() is None
+    assert qos.current_wire() is None
+    with qos.request_context(priority="batch", tenant="team-a", timeout_s=5) as ctx:
+        assert ctx.rank == 1
+        wire = qos.current_wire()
+        back = qos.from_wire(wire)
+        assert (back.priority, back.tenant) == ("batch", "team-a")
+        assert 0 < back.remaining() <= 5
+        # Nested contexts inherit missing fields and override present ones.
+        with qos.request_context(priority="interactive") as inner:
+            assert inner.tenant == "team-a" and inner.rank == 0
+            assert inner.deadline == ctx.deadline
+        assert qos.current().priority == "batch"
+    assert qos.current() is None
+
+
+def test_context_activate_deactivate_and_expiry():
+    tok = qos.activate((2, "t9", time.time() - 1.0, "rid9"))
+    try:
+        ctx = qos.current()
+        assert ctx.priority == "best_effort" and ctx.rid == "rid9"
+        assert ctx.expired() and ctx.remaining() < 0
+    finally:
+        qos.deactivate(tok)
+    assert qos.current() is None
+    with pytest.raises(ValueError):
+        qos.request_context(priority="urgent")
+
+
+def test_raise_expired_counts_and_is_typed():
+    before = _counter_value("serve.request.expired_total", hop="unit-test")
+    with pytest.raises(qos.DeadlineExceeded):
+        qos.raise_expired("unit-test", "fixture")
+    assert _counter_value("serve.request.expired_total", hop="unit-test") == before + 1
+    # Typed as a TimeoutError subclass: existing timeout handlers keep working.
+    assert issubclass(qos.DeadlineExceeded, TimeoutError)
+
+
+# ---------------------------------------------------------------------------
+# FairWaitQueue policy
+# ---------------------------------------------------------------------------
+
+def _w(rank=0, tenant="t", deadline=None):
+    return Waiter(rank=rank, tenant=tenant, deadline=deadline)
+
+
+def test_fair_queue_fifo_within_tenant():
+    q = FairWaitQueue()
+    ws = [_w() for _ in range(10)]
+    for w in ws:
+        q.push(w)
+    assert [q.pop_next() for _ in range(10)] == ws
+    assert q.pop_next() is None and q.empty()
+
+
+def test_fair_queue_strict_class_priority():
+    q = FairWaitQueue()
+    batch, best, inter = _w(rank=1), _w(rank=2), _w(rank=0)
+    q.push(batch)
+    q.push(best)
+    q.push(inter)  # queued LAST, served FIRST
+    assert q.pop_next() is inter
+    assert q.pop_next() is batch
+    assert q.pop_next() is best
+
+
+def test_fair_queue_drr_tenant_fairness_under_skew():
+    """Two tenants with wildly skewed offered load get ~equal admitted
+    throughput within a class (the DRR contract)."""
+    q = FairWaitQueue()
+    flood = [_w(tenant="flood") for _ in range(30)]
+    trickle = [_w(tenant="trickle") for _ in range(5)]
+    for w in flood:
+        q.push(w)
+    for w in trickle:
+        q.push(w)
+    first10 = [q.pop_next() for _ in range(10)]
+    by_tenant = {"flood": 0, "trickle": 0}
+    for w in first10:
+        by_tenant[w.tenant] += 1
+    assert by_tenant == {"flood": 5, "trickle": 5}, by_tenant
+    # Once the trickle drains, the flood gets everything.
+    rest = [q.pop_next() for _ in range(25)]
+    assert all(w.tenant == "flood" for w in rest)
+    assert q.empty()
+
+
+def test_fair_queue_weighted_tenants():
+    q = FairWaitQueue(weights={"heavy": 2.0})
+    for _ in range(12):
+        q.push(_w(tenant="heavy"))
+        q.push(_w(tenant="light"))
+    first9 = [q.pop_next() for _ in range(9)]
+    heavy = sum(1 for w in first9 if w.tenant == "heavy")
+    assert heavy == 6, first9  # 2:1 service ratio
+
+
+def test_fair_queue_lazy_discard():
+    q = FairWaitQueue()
+    a, b, c = _w(), _w(), _w()
+    for w in (a, b, c):
+        q.push(w)
+    q.discard(b)
+    assert len(q) == 2
+    assert q.pop_next() is a
+    assert q.pop_next() is c
+    assert q.pop_next() is None
+
+
+# ---------------------------------------------------------------------------
+# AIMD admission controller
+# ---------------------------------------------------------------------------
+
+def test_aimd_converges_under_standing_delay_and_recovers():
+    t = [0.0]
+    ctl = AdmissionController(target_delay_s=0.1, min_limit=2, max_limit=64,
+                              initial_limit=32, interval_s=1.0, now=lambda: t[0])
+    # Standing queue: every window's MINIMUM delay exceeds target ->
+    # multiplicative decrease all the way to the floor.
+    for _ in range(12):
+        t[0] += 1.1
+        ctl.record_delay(0.5, rank=2)
+    assert ctl.limit == 2.0, ctl.snapshot()
+    # Load drops: delays below target -> additive recovery.
+    for _ in range(10):
+        t[0] += 1.1
+        ctl.record_delay(0.01, rank=2)
+    assert ctl.limit >= 10.0, ctl.snapshot()
+
+
+def test_aimd_per_class_minima_interactive_cannot_mask_background_queue():
+    """With strict priority, interactive delays are ~0 even when best_effort
+    has a standing queue — a single global window-min would never decrease.
+    The controller keys on the WORST class's window minimum."""
+    t = [0.0]
+    ctl = AdmissionController(target_delay_s=0.1, min_limit=2, max_limit=64,
+                              initial_limit=32, interval_s=1.0, now=lambda: t[0])
+    for _ in range(6):
+        t[0] += 1.1
+        ctl.record_delay(0.0, rank=0)   # interactive: jumped the queue
+        ctl.record_delay(0.8, rank=2)   # best_effort: standing queue
+    assert ctl.limit < 32.0, ctl.snapshot()
+
+
+def test_admission_sheds_background_first_protects_interactive():
+    ctl = AdmissionController(target_delay_s=0.1, min_limit=2, max_limit=64,
+                              initial_limit=2, interval_s=3600.0)
+    # best_effort cap = 0.6 * 2 = 1.2 against TOTAL inflight: admits while
+    # inflight <= 1, sheds from the 3rd concurrent background request on.
+    assert ctl.try_admit(2)[0]
+    assert ctl.try_admit(2)[0]
+    ok, retry_after = ctl.try_admit(2)
+    assert not ok and retry_after >= 0.2
+    # batch cap = 0.85 * 2 = 1.7: total inflight is already 2 -> sheds too.
+    assert not ctl.try_admit(1)[0]
+    # interactive caps against its OWN inflight (1.5 * 2 = 3), so the
+    # converged-down limit and the background load cannot shed it.
+    assert ctl.try_admit(0)[0]
+    assert ctl.try_admit(0)[0]
+    assert ctl.try_admit(0)[0]
+    assert not ctl.try_admit(0)[0]  # own-class headroom exhausted
+    ctl.release(0)
+    assert ctl.try_admit(0)[0]
+
 
 # ---------------------------------------------------------------------------
 # router admission (offline _ReplicaSet: no cluster)

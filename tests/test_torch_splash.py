@@ -117,9 +117,9 @@ def test_two_layer_forward_splash_matches_flash(packed):
     toks = rng.integers(0, SMALL["vocab_size"], (2, 48)).astype(np.int32)
     seg = (np.arange(48)[None, :] >= np.array([[20], [31]])).astype(np.int32) if packed else None
     tseg = None if seg is None else torch.from_numpy(seg)
-    splash = tt.forward(params, torch.from_numpy(toks).long(), dataclasses.replace(tc, attention_impl="splash"),
+    splash, _ = tt.forward(params, torch.from_numpy(toks).long(), dataclasses.replace(tc, attention_impl="splash"),
                         segment_ids=tseg)
-    flash = tt.forward(params, torch.from_numpy(toks).long(), dataclasses.replace(tc, attention_impl="flash"),
+    flash, _ = tt.forward(params, torch.from_numpy(toks).long(), dataclasses.replace(tc, attention_impl="flash"),
                        segment_ids=tseg)
     want, _ = jt.forward(jp, jnp.asarray(toks), jc, segment_ids=None if seg is None else jnp.asarray(seg))
     np.testing.assert_allclose(splash.numpy(), flash.numpy(), atol=1e-5, rtol=1e-5)

@@ -1,8 +1,8 @@
 """The port's state introspection (``ray_tpu_torch.state``, the controller's
-task index): the cases of ``tests/test_state_api.py`` on port clusters,
-except ``test_every_worker_event_kind_maps_to_fsm``, left out because it
-lints the worker with ``analysis``, which is not ported (ROADMAP Queue 1
-item 2c).
+task index): the cases of ``tests/test_state_api.py`` on port clusters.
+``test_every_worker_event_kind_maps_to_fsm`` lints the port's worker with
+``ray_tpu.analysis`` until the port has its own analyzer (ROADMAP Queue 1
+item 2c), as ``test_torch_lint_gate.py`` does.
 
 State introspection: task lifecycle FSM completeness, the controller's
 bounded per-task index (filters, truncation, eviction accounting), the
@@ -38,6 +38,24 @@ def test_fsm_tables_consistent():
     for dsts in ts.TRANSITIONS.values():
         reachable |= dsts
     assert reachable | {ts.PENDING_ARGS_AVAIL, ts.PENDING_NODE_ASSIGNMENT} == set(ts.STATES)
+
+
+def test_every_worker_event_kind_maps_to_fsm():
+    """Thin wrapper over graftlint's fsm-emitter rule (the ad-hoc AST scan
+    that used to live here migrated into ray_tpu_torch/analysis/rules_fsm.py).
+    Asserts the rule still SEES emitters — a scan that finds zero emitters
+    has silently gone dead and gates nothing — and that worker.py's kinds
+    all map into the FSM."""
+    import ray_tpu_torch.core.worker as worker_mod
+    from ray_tpu.analysis import lint_paths
+
+    result = lint_paths([worker_mod.__file__])
+    stats = result.stats.get(worker_mod.__file__, {}).get("fsm-emitter")
+    assert stats and stats["emitters"] >= 1, "fsm-emitter scan found no emitters — the scan is broken"
+    fsm_findings = [f for f in result.findings if f.rule == "fsm-emitter"]
+    assert not fsm_findings, "\n".join(f.render() for f in fsm_findings)
+
+
 
 
 def test_fold_converges_regardless_of_arrival_order():

@@ -197,8 +197,8 @@ def test_unknown_remat_policy_and_unported_attention_raise():
     params = tt.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="remat_policy"):
         tt.forward_hidden(params, toks, dataclasses.replace(tc, remat=True, remat_policy="offload"))
-    ring = tt.forward(params, toks, dataclasses.replace(tc, attention_impl="ring"))
-    ref = tt.forward(params, toks, dataclasses.replace(tc, attention_impl="reference"))
+    ring, _ = tt.forward(params, toks, dataclasses.replace(tc, attention_impl="ring"))
+    ref, _ = tt.forward(params, toks, dataclasses.replace(tc, attention_impl="reference"))
     torch.testing.assert_close(ring, ref, rtol=0, atol=0)
 
 
