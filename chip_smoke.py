@@ -302,6 +302,30 @@ Phases, in order; any failure exits non-zero:
      (b)) makes the autoscaler launch one {"CPU": 4, "GPU": 1} node
      labelled with the card; the task's K1 holds (b)'s gates; later
      updates arm, drain and terminate the idle node.
+  6l. chaos-day-250M: (a) `python -m ray_tpu_torch lint --json --no-cache`
+     over the port (exit 0, total 0), `chaos list`, and `chaos run
+     tpu_preempt_drain --quick --seed 0` in its own process (report ok).
+     (b) The quick seed-0 day under day_in_the_life's chaos timeline
+     (ray_tpu/chaos/scenarios.py:1372-1388: a 0.04 s slow-replica window
+     over the storm, a calm client flap, a preemption notice of slice-a /
+     worker 1 with a 0.3 s grace in recovery, a 0.05 s delay of the
+     ckpt.publish.swap site, publish_weights at recovery + 0.3 s), compiled
+     at seed 0, warp 2, heartbeat 0.25 s, lead 1.0 s, replayed against one
+     replica of 6k(f)'s DayLLM (deployment "DayApp", num_gpus 1, num_cpus
+     2, 16 requests at once, subscribed to the timeline's channel) on an
+     in-process cluster: a head with the card and 8 CPUs, and a 1-CPU
+     victim host with the slice labels; the publish action commits a 250M
+     tree drawn from seed 1 through the port's ckpt and publishes it.
+     Gates: the victim drains and goes DEAD; each of the timeline's sites
+     is in the driver's or the replica's injection log; the replica
+     reports the published ckpt_id; 8 of phase 6's prompts x 64 tokens
+     through the handle equal an in-process engine built on the published
+     tree; K1 and K4 launched in the replica before and after the swap;
+     chaos.invariants.check_all ok; every request a 200, 429 or 504, and
+     interactive goodput > 0. Printed, not gated: the run ledger and its
+     gates (their floors are the reference's 4 ms toy app's), per class
+     p50/p99, TTFT p95 and goodput, the swap blip, publish -> swap, the
+     preemption notice -> DEAD, the day's wall time.
   7. training: (a) the model cut to 2 layers, B 2 x S 2048, bf16: the
      gradients of one cross_entropy_loss through the kernels
      (attention_impl="flash": K1, K3, K2) against the plain path
@@ -418,12 +442,14 @@ Phases, in order; any failure exits non-zero:
      step's, and the updated wq within 5e-3; losses fall; every leaf's per-slot shard shape
      follows the strategy's spec; K1 / K3 / K2 launches exact in (a) and
      (c) (4 slots x 12 layers, K1 twice under remat) and (e) (4 microbatches
-     x 12 layers). Printed: step times and peak memory.
+     x 12 layers). Printed: step times, peak memory, and the leaf with the
+     largest step-1 gradient error and that error.
   8. JSON lines {"engine": ...}, {"engine_prefix": ...},
      {"engine_mistral7b": ...}, {"engine_gemma2b": ...}, {"engine_openai": ...},
      {"engine_runtime": ...}, {"engine_serve_app": ...}, {"dag": ...}, {"data": ...}, {"train": ...},
      {"train_mistral7b": ...}, {"train_gemma2b": ...}, {"train_plane": ...},
-     {"tune": ...}, {"rl": ...}, {"engine_tp": ...}, {"train_parallel": ...}, {"kernels": [...]}
+     {"tune": ...}, {"rl": ...}, {"engine_tp": ...}, {"operator": ...}, {"chaos_day": ...},
+     {"train_parallel": ...}, {"kernels": [...]}
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
      registers and spills per instance, null where this run did not
@@ -4528,6 +4554,11 @@ def _rel_l2(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
+def _leaf_names(params) -> list:
+    """Names of models.transformer.leaves(params), in its order."""
+    return ["embed", *(f"layers/{k}" for k in params["layers"]), "final_norm", "lm_head"]
+
+
 def _sharded_grad(leaf):
     """A ShardedTensor parameter's gradient as one tensor: its master
     shards' grads, assembled under its spec."""
@@ -4611,8 +4642,10 @@ def phase_parallel_train(dev, card):
                     times.append(time.perf_counter() - t0)
                     if i == 0:  # gathers only: no kernel launches
                         with torch.no_grad():
-                            grad_err = max(_rel_l2(_sharded_grad(leaf), g)
-                                           for leaf, g in zip(leaves(st["params"]), ref_grads))
+                            errs = {n: _rel_l2(_sharded_grad(leaf), g) for n, leaf, g
+                                    in zip(_leaf_names(st["params"]), leaves(st["params"]), ref_grads)}
+                            worst = max(errs, key=errs.get)
+                            grad_err = errs[worst]
                             wq_err = _rel_l2(st["params"]["layers"]["wq"].full(), ref_wq)
                 got = k123()
             loss = [m["loss"].item() for m in ms]
@@ -4621,13 +4654,13 @@ def phase_parallel_train(dev, card):
             rel_n = [abs(a - b) / abs(b) for a, b in zip(norm, ref_norm)]
             row = dict(mesh=axes, strategy=strat_name, attention_impl=impl, n_micro=n_micro, loss=loss,
                        grad_norm=norm, loss_rel_err=max(rel_l), grad_norm_rel_err=max(rel_n),
-                       step1_grad_rel_l2_max=grad_err, step1_wq_rel_l2=wq_err,
+                       step1_grad_rel_l2_max=grad_err, step1_grad_worst_leaf=worst, step1_wq_rel_l2=wq_err,
                        step_ms=[1e3 * t for t in times], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                        launches=got)
             log(f"train parallel {name} ({strat_name}, {impl}{f', n_micro {n_micro}' if n_micro else ''}): loss "
                 f"{' '.join(f'{x:.4f}' for x in loss)} (rel {max(rel_l):.2e}), grad_norm "
                 f"{' '.join(f'{x:.3f}' for x in norm)} (rel {max(rel_n):.2e}), step 1's grads rel L2 <= "
-                f"{grad_err:.2e}, wq {wq_err:.2e}, step ms "
+                f"{grad_err:.2e} (worst leaf {worst}), wq {wq_err:.2e}, step ms "
                 f"{' '.join(f'{1e3 * t:.1f}' for t in times)}, peak mem {row['peak_mem_gb']:.2f} GB, launches K1 "
                 f"{got['flash_fwd']} K3 {got['flash_bwd_dq']} K2 {got['flash_bwd_dkv']}  [{card}]")
             if not (all(math.isfinite(x) for x in loss + norm) and max(rel_l) <= PAR_LOSS_RTOL
@@ -5200,6 +5233,309 @@ def phase_operator(dev, card, phase6):
     return out, launches
 
 
+# Phase 6l (chaos-day-250M): the quick seed-0 day under day_in_the_life's
+# chaos timeline (ray_tpu/chaos/scenarios.py:1372-1388, verbatim) against
+# one GPU replica of 6k(f)'s DayLLM, on an in-process cluster: a head with
+# the card and CHAOS_CPUS CPUs, and a 1-CPU victim host carrying the slice
+# labels the timeline's preemption notice names (it joins once serve is
+# placed). The replica (num_gpus 1, num_cpus 2: it can never land on the
+# victim) subscribes to the timeline's channel; the publish_weights action
+# commits the 250M tree drawn from CHAOS_PUBLISH_SEED through the port's
+# ckpt and publishes it. After the day CHAOS_CHECK_N of phase 6's prompts go
+# through the handle. The replica's QoS knobs are the defaults 6k(f) ran
+# with (the reference's are tuned for its 4 ms toy app). Every wait is
+# bounded by OPS_TIMEOUT_S.
+CHAOS_CPUS, CHAOS_PUBLISH_SEED, CHAOS_CHECK_N = 8, 1, 8
+CHAOS_WARP, CHAOS_HEARTBEAT_S, CHAOS_LEAD_S = 2.0, 0.25, 1.0
+CHAOS_TIMELINE = [
+    {"action": "slow_replica_window", "phase": "storm", "delay_s": 0.04, "deployment": "DayApp"},
+    {"action": "client_flap", "phase": "calm", "offset_s": 1.0, "kind": "delay", "delay_s": 0.03, "every": 9},
+    {"action": "tpu_preempt", "phase": "recovery", "offset_s": 0.6, "worker_id": "1", "slice": "slice-a",
+     "grace_s": 0.3},
+    {"action": "chaos_rule", "rule": {"site": "ckpt.publish.swap", "kind": "delay", "nth": 1, "delay_s": 0.05}},
+    {"action": "publish_weights", "phase": "recovery", "offset_s": 0.3, "channel": "day-weights", "step": 1},
+]
+
+
+def _chaos_day_server():
+    """6k(f)'s DayLLM that also records, as a published tree swaps in, its
+    K1 / K4 launches so far and the wall-clock time, and reports its own
+    process's chaos injection log."""
+    base = _day_server()
+
+    class ChaosDayLLM(base):
+        _at_swap = None
+
+        def _swap_weights(self, tree, summary):
+            super()._swap_weights(tree, summary)
+            from ray_tpu_torch.ops import attention, paged_attention
+
+            self._at_swap = dict(flash_fwd=attention.LAUNCHES, paged_decode=paged_attention.LAUNCHES,
+                                 wall=time.time(), ckpt_id=(summary or {}).get("ckpt_id"))
+
+        def swap_record(self):
+            return self._at_swap
+
+        def injections(self):
+            from ray_tpu_torch.chaos import plan
+
+            return plan.injection_log(normalize=True)
+
+    ChaosDayLLM.__name__ = ChaosDayLLM.__qualname__ = "ChaosDayLLM"
+    return ChaosDayLLM
+
+
+def _chaos_cli(env):
+    """6l(a): the port's analyzer over the port, `chaos list`, and one
+    scenario run in its own process."""
+    rc, out, lint_s = _ops_cli(env, "lint", "--json", "--no-cache", check=False)
+    report = json.loads(out) if rc == 0 else {}
+    if rc != 0 or report.get("total") != 0:
+        raise AssertionError(f"6l(a): `lint --json` exited {rc} with total {report.get('total')}:\n{out[-4000:]}")
+    _, listed, _ = _ops_cli(env, "chaos", "list")
+    if "tpu_preempt_drain" not in listed or "tpu.preempt" not in listed:
+        raise AssertionError(f"6l(a): `chaos list` names no tpu_preempt_drain / tpu.preempt:\n{listed}")
+    rc, out, run_s = _ops_cli(env, "chaos", "run", "tpu_preempt_drain", "--quick", "--seed", "0", check=False)
+    scn = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    log(f"  (a) `lint --json`: {report['files']} files, total {report['total']}, {lint_s:.2f} s; `chaos list`: "
+        f"{listed.count(chr(10))} lines; `chaos run tpu_preempt_drain --quick --seed 0`: ok {scn.get('ok')}, "
+        f"injections {scn.get('injections')}, {run_s:.2f} s")
+    if rc != 0 or not scn.get("ok"):
+        raise AssertionError(f"6l(a): `chaos run tpu_preempt_drain` exited {rc}:\n{out[-4000:]}")
+    return dict(lint_files=report["files"], lint_total=report["total"], lint_s=lint_s,
+                scenario_ok=scn["ok"], scenario_s=run_s, scenario_injections=scn["injections"])
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+
+def _swap_blip(outcomes, t_day, swap_wall, window_s=1.0):
+    """Requests sent in the window_s before and after the swap: count, 200s,
+    transport errors, the p50 of the 200s."""
+    def side(lo, hi):
+        rows = [o for o in outcomes if lo <= t_day + o["t"] / CHAOS_WARP + o["late_s"] < hi]
+        lat = sorted(o["latency_s"] for o in rows if o["code"] == 200)
+        return dict(n=len(rows), ok=len(lat), errors=sum(o["code"] in (-1, 500) for o in rows),
+                    p50_s=lat[len(lat) // 2] if lat else None)
+
+    return dict(window_s=window_s, before=side(swap_wall - window_s, swap_wall),
+                after=side(swap_wall, swap_wall + window_s))
+
+
+def phase_chaos_day(dev, card, phase6):
+    """Phase 6l (chaos-day-250M). (a) `lint --json` over the port, `chaos
+    list`, `chaos run tpu_preempt_drain --quick --seed 0`; (b) the quick
+    seed-0 day under day_in_the_life's timeline against a GPU replica that
+    hot-swaps a published 250M tree mid-day. Returns (stats, launches in
+    the replica)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import ckpt, obs, replay, serve
+    from ray_tpu_torch.accel.gpu import TPU_SLICE_NAME_LABEL, TPU_WORKER_ID_LABEL
+    from ray_tpu_torch.chaos import invariants, plan, scenarios
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.core.api import Cluster, init
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine, build_llm_app
+    from ray_tpu_torch.llm.deployment import _tensor_tree
+    from ray_tpu_torch.models import TransformerConfig
+    from ray_tpu_torch.models.transformer import cast_params, init_params
+    from ray_tpu_torch.obs import ledger
+    from ray_tpu_torch.serve.handle import _reset_registry
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_6l_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (os.path.dirname(os.path.abspath(__file__)),
+                                                    env.get("PYTHONPATH", "")) if p)
+    cli = _chaos_cli(env)
+    cfg_model = TransformerConfig(**MODEL)
+    gen = torch.Generator(device=dev).manual_seed(CHAOS_PUBLISH_SEED)
+    published_tree = _cpu_tree(cast_params(init_params(cfg_model, gen, dev), cfg_model.dtype, dev))
+    torch.cuda.empty_cache()
+
+    params = replay.default_params(quick=True)
+    header, records = replay.synthesize(0, **params)
+    trace_sha = hashlib.sha256(replay.dumps_trace(header, records)).hexdigest()
+    spans = replay.phase_spans(params)
+    compiled = replay.Timeline(spans, CHAOS_TIMELINE).compile(0, records, time_warp=CHAOS_WARP,
+                                                              heartbeat_s=CHAOS_HEARTBEAT_S, lead_s=CHAOS_LEAD_S)
+    channel = next(a["channel"] for a in CHAOS_TIMELINE if a["action"] == "publish_weights")
+    cfg = scenarios._fresh_config()
+    cfg.heartbeat_interval_s = CHAOS_HEARTBEAT_S
+    cfg.slo_eval_interval_s = 0.25
+    cfg.chaos_spec = json.dumps(compiled.spec)
+    plan.install_from_json(cfg.chaos_spec)
+    cluster = Cluster(initialize_head=False, config=cfg)
+    try:
+        cluster.add_node(num_cpus=CHAOS_CPUS, resources={"GPU": 1.0})
+        init(address=cluster.address, config=cfg)
+        serve.start()
+        buckets = tuple(b for b in EngineConfig().prefill_buckets if b <= OPS_DAY_PROMPT)
+        app = build_llm_app(MODEL, OPS_ENGINE, max_ongoing_requests=OPS_DAY_ONGOING, warmup_buckets=buckets,
+                            ray_actor_options={"num_gpus": 1, "num_cpus": 2}, weights_channel=channel)
+        app.deployment = app.deployment.options(name="DayApp")
+        handle, ready_s, replicas, _ = _app_run(rt, serve, app, _chaos_day_server(), "day", route_prefix="/day")
+        for spec in ({"name": "day-availability", "metric": "availability", "app": "day", "deployment": "DayApp",
+                      "fast_window_s": 1.0, "slow_window_s": 3.0, "burn_threshold": 2.0},
+                     {"name": "day-latency", "metric": "latency", "target": 0.5, "quantile": 0.95, "app": "day",
+                      "deployment": "DayApp", "fast_window_s": 1.0, "slow_window_s": 3.0, "burn_threshold": 2.0}):
+            serve.register_slo(spec)
+        storage = os.path.join(work, "ckpt")
+        store = ckpt.ChunkStore(storage)
+        manifests = ckpt.ManifestStore(storage, num_to_keep=2, chunk_store=store)
+        pub = {}
+
+        def publish(action):
+            step = int(action.get("step", 1))
+            t0 = time.perf_counter()
+            part = ckpt.write_part(store, ckpt.snapshot_tree(published_tree), rank=0, step=step)
+            m = ckpt.commit_parts(manifests, ckpt.new_ckpt_id(step), step, [part], 1,
+                                  channel=action["channel"], meta={"step": step})
+            ckpt.publish_checkpoint(m, action["channel"])
+            pub.update(manifest=m, wall=time.time(), seconds=time.perf_counter() - t0, bytes=part["bytes_total"])
+            return {"ckpt_id": m["ckpt_id"]}
+
+        core = rt_api._require_worker()
+        base = scenarios._baseline_counters(core)
+        _app_counts(rt, replicas, reset=True)
+        victim = cluster.add_node(num_cpus=1, labels={TPU_SLICE_NAME_LABEL: "slice-a", TPU_WORKER_ID_LABEL: "1"})
+        t_day = time.time()
+        t0 = time.perf_counter()
+        driver = replay.TimelineDriver(compiled.control, {"publish_weights": publish},
+                                       time_warp=CHAOS_WARP).start()
+        outcomes = replay.Replayer(serve.http_port(), time_warp=CHAOS_WARP,
+                                   max_workers=OPS_DAY_SENDERS).run(header, records)
+        day_s = time.perf_counter() - t0
+        t_after = time.perf_counter()
+        tl_log = driver.join(timeout=OPS_TIMEOUT_S)
+
+        t0 = time.perf_counter()
+        state = {}
+        while state.get("state") != "DEAD":
+            if time.perf_counter() - t0 > OPS_TIMEOUT_S:
+                raise AssertionError(f"6l: the preempted victim host never went DEAD: {state}")
+            state = core._run(core.controller.call("get_cluster_state", {}))["nodes"].get(victim.node_id, {})
+            time.sleep(0.2)
+        events = core._run(core.controller.call("get_events", {"limit": 4000}))
+        ts = {e["kind"]: e["ts"] for e in events if e.get("node_id") == victim.node_id
+              and e["kind"] in ("node_draining", "node_dead")}
+        published = next((e["detail"]["ckpt_id"] for e in tl_log if e["action"] == "publish_weights" and e.get("ok")),
+                         None)
+        if published is None:
+            raise AssertionError(f"6l: the timeline's weight publication failed: {tl_log}")
+        t0 = time.perf_counter()
+        version = handle.options(method_name="weights_version").remote().result(timeout=60)
+        while version != published and time.perf_counter() - t0 < OPS_TIMEOUT_S:
+            time.sleep(0.1)
+            version = handle.options(method_name="weights_version").remote().result(timeout=60)
+        swap = rt.get(replicas[0].handle_request.remote("swap_record", (), {}), timeout=60)
+        prompts = phase6[0][:CHAOS_CHECK_N]
+        got = [list(handle.options(method_name="generate").remote(p.tolist(), MAX_TOKENS).result(timeout=OPS_TIMEOUT_S)
+                    ["tokens"]) for p in prompts]
+        counts = _app_counts(rt, replicas)[0]
+        cut = rt.get(replicas[0].handle_request.remote("cut_streams", (), {}), timeout=60)
+        replica_log = rt.get(replicas[0].handle_request.remote("injections", (), {}), timeout=60)
+
+        tree = _tensor_tree(ckpt.restore_tree(pub["manifest"], store))
+        eng = LLMEngine(cfg_model, params=tree, engine_config=EngineConfig(**OPS_ENGINE))
+        want = [list(eng.generate(p, max_tokens=MAX_TOKENS)["tokens"]) for p in prompts]
+        del eng, tree
+        torch.cuda.empty_cache()
+
+        deltas = {}
+        t0 = time.perf_counter()
+        while deltas.get("ckpt.publish.swaps_total", 0) < 1 and time.perf_counter() - t0 < 10:
+            deltas = scenarios._counter_deltas(core, base)
+            time.sleep(0.4)
+        summary = replay.summarize(outcomes, phases=spans)
+        driver_log = plan.injection_log(normalize=True)
+        led = ledger.build(
+            meta={"scenario": "day_in_the_life_gpu", "seed": 0, "quick": True, "time_warp": CHAOS_WARP,
+                  "requests": header["requests"], "trace_sha256": trace_sha},
+            spans=spans, load=summary, slo={"status": serve.slo_status(), "history": obs.slo_history()},
+            counters={**deltas, "k1.launches": float(counts["flash_fwd"]),
+                      "k4.launches": float(counts["paged_decode"]), "serve.stream.cut_total": float(cut)},
+            autopsy=obs.autopsy_summary(),
+            chaos={"injections": driver_log, "count": int(deltas.get("chaos.injected_total", 0))},
+            timeline=tl_log)
+        ledger.save(os.path.join(work, "ledger.json"), led)
+        gate = ledger.gate(led)
+        _reset_registry()  # park router threads before the invariant battery
+        inv = invariants.check_all(core, cluster, min_injections=2, min_metric_injections=3)
+        after_day_s = time.perf_counter() - t_after
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt_api.shutdown()
+            cluster.shutdown()
+            plan.uninstall()
+            shutil.rmtree(work, ignore_errors=True)
+    if rt_api._global_worker is not None or rt_api._LIVE_CLUSTERS:
+        raise AssertionError("6l left the runtime up")
+
+    log("\n".join("    " + ln for ln in ledger.render(led).splitlines()))
+    codes = {}
+    for o in outcomes:
+        code = None if o is None else o["code"]
+        codes[code] = codes.get(code, 0) + 1
+    classes = {}
+    for cls, c in summary["classes"].items():
+        t = c["_total"]
+        classes[cls] = {k: t[k] for k in ("n", "ok", "goodput", "shed", "expired", "p50_s", "p99_s", "ttft_p95_s")}
+        log(f"  {cls:>11}: n {t['n']} ok {t['ok']} goodput {t['goodput']} shed {t['shed']} expired "
+            f"{t['expired']}  p50 {t['p50_s']} s  p99 {t['p99_s']} s  TTFT p95 {t['ttft_p95_s']} s")
+    before = {"flash_fwd": swap["flash_fwd"], "paged_decode": swap["paged_decode"]} if swap else None
+    after = None if swap is None else {k: counts[k] - swap[k] for k in before}
+    blip = _swap_blip([o for o in outcomes if o is not None], t_day, swap["wall"]) if swap else None
+    blip_ledger = sum(c["phases"]["recovery"]["errors"] for c in summary["classes"].values())
+    sites = {r["site"] for r in compiled.spec["rules"]}
+    logged = {e["site"] for e in driver_log} | {e["site"] for e in replica_log}
+    notice_to_dead = ts["node_dead"] - ts["node_draining"] if len(ts) == 2 else None
+    stats = dict(cli=cli, requests=len(records), day_s=day_s, after_day_s=after_day_s, ready_s=ready_s,
+                 codes=codes,
+                 classes=classes, total=summary["total"], streams_cut=cut, trace_sha256=trace_sha,
+                 published=published, version=version, publish_s=pub.get("seconds"), publish_bytes=pub.get("bytes"),
+                 publish_to_swap_s=None if swap is None else swap["wall"] - pub["wall"],
+                 swap_after_day_start_s=None if swap is None else swap["wall"] - t_day,
+                 swap_blip=blip, recovery_errors=blip_ledger, notice_to_dead_s=notice_to_dead,
+                 launches_before_swap=before, launches_after_swap=after, tokens_equal=got == want,
+                 sites=sorted(sites), driver_log=driver_log, replica_log=replica_log, timeline=tl_log,
+                 ledger_gate=gate, invariants={k: v["ok"] for k, v in inv.items() if isinstance(v, dict)},
+                 launches={"flash_fwd": counts["flash_fwd"], "paged_decode": counts["paged_decode"]})
+    log(f"  (b) replica healthy in {ready_s:.2f} s; {len(records)} requests in {day_s:.2f} s at warp {CHAOS_WARP}, "
+        f"status codes {codes}, {cut} streams cut after their first frame; published {published} "
+        f"({pub.get('bytes', 0) / 1e9:.3f} GB written in {pub.get('seconds', 0):.2f} s), publish -> swap "
+        f"{stats['publish_to_swap_s']} s ({stats['swap_after_day_start_s']} s after the day began), replica "
+        f"version {version}; swap blip {blip} (recovery-phase errors {blip_ledger}); preempt notice -> DEAD "
+        f"{notice_to_dead} s; sites {sorted(sites)} logged {sorted(logged)}; K1/K4 before the swap {before}, "
+        f"after it {after}; {CHAOS_CHECK_N} x {MAX_TOKENS} tokens after the day "
+        f"{'equal' if got == want else 'DIFFER from'} an engine on the published tree; invariants "
+        f"{stats['invariants']}; ledger gates (printed, not gated) {[(c['name'], c['ok']) for c in gate['checks']]}"
+        f"  [{card}]")
+    if sites - logged:
+        raise AssertionError(f"6l: the timeline's sites {sorted(sites - logged)} never fired")
+    if version != published:
+        raise AssertionError(f"6l: the replica reports {version}, not the published {published}")
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"6l: tokens after the day differ from the published tree's engine for prompts {bad}")
+    if swap is None or swap["ckpt_id"] != published or min(before.values()) <= 0 or min(after.values()) <= 0:
+        raise AssertionError(f"6l: K1/K4 must launch in the replica before and after the swap: {swap}, {counts}")
+    if not inv["ok"]:
+        raise AssertionError(f"6l: chaos.invariants.check_all failed: {inv}")
+    if any(o is None for o in outcomes) or set(codes) - {200, 429, 504}:
+        raise AssertionError(f"6l: a request failed other than by a QoS shed (429) or its deadline (504): {codes}")
+    if not summary["classes"].get("interactive", {}).get("_total", {}).get("goodput"):
+        raise AssertionError("6l: no interactive request was answered")
+    stats["total_s"] = time.perf_counter() - t_phase
+    log(f"  6l {stats['total_s']:.2f} s (after the day: DEAD, swap, check prompts, engine, ledger, battery "
+        f"{after_day_s:.2f} s)")
+    return stats, stats["launches"]
+
+
 def _pid_alive(pid):
     try:
         os.kill(pid, 0)
@@ -5271,6 +5607,7 @@ def _run(args, dev, rng):
     data, db_launches, di_launches = phase_data(dev, card, stats, phase6)
     serve_tp, tp_serve_launches = phase_serve_tp(dev, card, phase6)
     ops, ops_launches = phase_operator(dev, card, phase6)
+    chaos_day, cd_launches = phase_chaos_day(dev, card, phase6)
     train, t_launches, s_launches = phase_train(dev, card, args.profile)
     m_train, mt_launches = phase_big_train(dev, card, "mistral7b", args.profile)
     g_train, gt_launches = phase_big_train(dev, card, "gemma2b", args.profile)
@@ -5285,14 +5622,15 @@ def _run(args, dev, rng):
     # parallel_train (7j: K1-K3 per slot or microbatch), and 6k's
     # runtime_env (K1 in the runtime_env tasks' workers), job (K1/K4 in the
     # job's entrypoint), autoscaler (K1 on the autoscaled node's worker) and
-    # replay (K1/K4 in the day's replica) are the 250M cells (D 64);
+    # replay (K1/K4 in the day's replica), and 6l's chaos_day (K1/K4 in the
+    # chaos day's replica, across its weight swap) are the 250M cells (D 64);
     # serve_mistral7b and train_mistral7b the 7B cells (D 128);
     # serve_gemma2b and train_gemma2b the 2B cells (D 256).
     paths = {"serve": launches, "serve_prefix": p_launches, "serve_openai": o_launches,
              "serve_runtime": r_launches, "serve_app": a_launches, "dag": d_launches, "data_batch": db_launches,
              "data_ingest": di_launches, "train": t_launches, "train_plane": tp_launches,
              "train_plane_serve": tps_launches, "tune": tn_launches, "tp_serve": tp_serve_launches,
-             "parallel_train": tpar_launches, **ops_launches,
+             "parallel_train": tpar_launches, **ops_launches, "chaos_day": cd_launches,
              "serve_mistral7b": m_launches, "train_mistral7b": mt_launches, "serve_gemma2b": g_launches,
              "train_gemma2b": gt_launches}
     big_paths = {128: "mistral7b", 256: "gemma2b"}
@@ -5338,6 +5676,7 @@ def _run(args, dev, rng):
     log(json.dumps({"rl": rl}))
     log(json.dumps({"engine_tp": serve_tp}))
     log(json.dumps({"operator": ops}))
+    log(json.dumps({"chaos_day": chaos_day}))
     log(json.dumps({"train_parallel": train_par}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

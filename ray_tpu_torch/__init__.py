@@ -10,7 +10,10 @@ torch is imported by the ML subpackages, not here nor by the runtime.
 - ``ray_tpu_torch.core``    the runtime: core worker, node daemon,
                             controller, shared-memory object store, RPC
 - ``ray_tpu_torch.obs``     flight recorder, health, profiler, SLO, autopsy
-- ``ray_tpu_torch.chaos``   seeded fault injection (the gate and its sites)
+- ``ray_tpu_torch.chaos``   seeded fault injection (the gate, its sites and
+                            the invariant-checked scenario runner)
+- ``ray_tpu_torch.analysis`` graftlint, the AST invariant checker
+                            (``python -m ray_tpu_torch lint``)
 - ``ray_tpu_torch.accel``   GPU detection and device isolation
 - ``ray_tpu_torch.models``  the transformer's forward pieces and its params
 - ``ray_tpu_torch.ops``     attention kernels (CUDA C++ for sm_90a, built at

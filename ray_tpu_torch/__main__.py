@@ -11,26 +11,6 @@ import argparse
 import json
 import sys
 
-_LINT_DEFERRED = (
-    "`lint` (the graftlint analyzer, analysis/) is not ported yet "
-    "(ROADMAP Queue 1 item 2c: analysis/)"
-)
-
-
-def add_lint_parser(sub) -> None:
-    """The reference's `lint` arguments, so scripts that pass them parse."""
-    lp = sub.add_parser("lint", help="AST invariant checks for the async runtime (graftlint)")
-    lp.add_argument("paths", nargs="*", help="files/dirs to lint (default: the package)")
-    lp.add_argument("--json", action="store_true", help="machine-readable report on stdout")
-    lp.add_argument("--diff", metavar="REF",
-                    help="report findings only for files changed since the git ref")
-    lp.add_argument("--no-cache", action="store_true", help="disable the parse cache")
-    lp.add_argument("--cache-path", metavar="FILE", help="parse cache location")
-
-
-def cmd_lint(args) -> int:
-    raise NotImplementedError(_LINT_DEFERRED)
-
 
 def _connect(address: str | None):
     from ray_tpu_torch import scripts
@@ -299,6 +279,8 @@ def cmd_profile(args):
 
 def main(argv=None):
     from ray_tpu_torch import scripts
+
+    from ray_tpu_torch.analysis.cli import add_lint_parser, cmd_lint
 
     p = argparse.ArgumentParser(prog="ray_tpu_torch")
     p.add_argument("--address", default=None, help="controller address host:port")

@@ -21,6 +21,11 @@ from typing import Optional
 
 # Node label keys (reference: ray_constants' accelerator-type label).
 GPU_NAME_LABEL = "raytpu.io/gpu-name"
+# The host-group labels that a preemption notice is matched on. They keep
+# the reference's names and values (``ray_tpu/accel/tpu.py``), so fault
+# specs and scenarios that name a slice and a worker carry over.
+TPU_SLICE_NAME_LABEL = "raytpu.io/tpu-slice-name"
+TPU_WORKER_ID_LABEL = "raytpu.io/tpu-worker-id"
 
 VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
 _PROC_GPUS = "/proc/driver/nvidia/gpus"
@@ -111,7 +116,7 @@ def preemption_notice(node_id: str, labels: Optional[dict] = None):
     return chaos.maybe_inject(
         "tpu.preempt",
         node=node_id[:12],
-        worker_id=labels.get("raytpu.io/tpu-worker-id", ""),
-        slice=labels.get("raytpu.io/tpu-slice-name", ""),
+        worker_id=labels.get(TPU_WORKER_ID_LABEL, ""),
+        slice=labels.get(TPU_SLICE_NAME_LABEL, ""),
     )
 

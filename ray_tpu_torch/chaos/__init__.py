@@ -5,10 +5,8 @@ Every fault site in the tree calls one gate — ``chaos.maybe_inject(site)``
 consults the installed seeded :class:`FaultSchedule` when on. Same seed =>
 identical per-rule injection sequence, so every chaos failure replays from
 its logged ``(seed, schedule)`` pair. See ``ray_tpu_torch/chaos/plan.py`` for the
-mechanism and ``sites.py`` for the site catalog. The reference's
-invariant-checked scenario runner and its CLI (``scenarios.py``) are not
-ported yet (ROADMAP Queue 1 item 2c: chaos/scenarios.py): ``python -m
-ray_tpu_torch chaos`` parses the reference's arguments and raises.
+mechanism, ``sites.py`` for the site catalog, ``scenarios.py`` for the
+invariant-checked scenario runner (``python -m ray_tpu_torch chaos run ...``).
 """
 from ray_tpu_torch.chaos.plan import (
     ChaosError,
@@ -27,26 +25,17 @@ from ray_tpu_torch.chaos.plan import (
 from ray_tpu_torch.chaos.sites import SITES, catalog
 
 
-_CLI_DEFERRED = (
-    "the chaos scenario runner is not ported yet "
-    "(ROADMAP Queue 1 item 2c: chaos/scenarios.py)"
-)
-
-
 def add_chaos_parser(sub) -> None:
-    """The reference's `chaos` arguments; ``cmd_chaos`` raises until the
-    scenario runner lands."""
-    cp = sub.add_parser("chaos", help="seeded fault-injection scenario runner")
-    csub = cp.add_subparsers(dest="chaos_cmd", required=True)
-    crun = csub.add_parser("run", help="run one scenario in a fresh in-process cluster")
-    crun.add_argument("scenario")
-    crun.add_argument("--seed", type=int, default=0)
-    crun.add_argument("--quick", action="store_true", help="smaller workloads")
-    csub.add_parser("list", help="scenarios + the fault-site catalog")
+    """CLI hook (lazy: the scenario runner imports cluster machinery)."""
+    from ray_tpu_torch.chaos.scenarios import add_chaos_parser as _add
+
+    _add(sub)
 
 
 def cmd_chaos(args) -> int:
-    raise NotImplementedError(_CLI_DEFERRED)
+    from ray_tpu_torch.chaos.scenarios import cmd_chaos as _cmd
+
+    return _cmd(args)
 
 
 __all__ = [

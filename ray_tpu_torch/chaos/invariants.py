@@ -14,7 +14,6 @@ import time
 from typing import Any, Optional
 
 from ray_tpu_torch.chaos import plan as _plan
-from ray_tpu_torch.obs import flight as _flight
 
 # Task-index states that mean "still in flight". After a quiesced workload
 # every indexed attempt must be FINISHED or FAILED — a record stuck in any
@@ -133,10 +132,7 @@ def check_all(core, cluster, *, min_injections: int = 1,
               min_metric_injections: Optional[int] = None) -> dict:
     """The standard post-scenario battery. min_metric_injections defaults to
     min_injections; pass 0 when every injecting process was killed by its
-    own fault (worker-kill scenarios). A failed battery dumps this process's
-    flight ring (trigger ``chaos.invariant``) and names the dump under
-    ``flight_dump``: the reference's scenario runner dumps there, and the
-    port has no runner yet, so the battery itself does."""
+    own fault (worker-kill scenarios)."""
     out: dict[str, Any] = {
         "no_stuck_tasks": no_stuck_tasks(core),
         "transfer_plane_quiesced": transfer_plane_quiesced(cluster),
@@ -147,8 +143,4 @@ def check_all(core, cluster, *, min_injections: int = 1,
     if mmin > 0:
         out["faults_visible_in_metrics"] = faults_visible_in_metrics(core, mmin)
     out["ok"] = all(v["ok"] for v in out.values() if isinstance(v, dict))
-    if not out["ok"]:
-        failed = sorted(k for k, v in out.items() if isinstance(v, dict) and not v["ok"])
-        out["flight_dump"] = _flight.dump(
-            "chaos.invariant", reason=f"invariant battery failed: {', '.join(failed)}")
     return out

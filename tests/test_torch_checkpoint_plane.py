@@ -1,8 +1,6 @@
 """The port's checkpoint plane on port clusters: the cases of
-``tests/test_checkpoint_plane.py`` but two, plus the port's LLMServer
-hot-swap. Left out for ROADMAP Queue 1 item 2c: ``test_ckpt_chaos_scenario_
-smoke`` and ``test_ckpt_scenario_replays_identically`` (``chaos/
-scenarios.py``). ``test_registry_state_api_and_dashboard`` is split in two:
+``tests/test_checkpoint_plane.py``, plus the port's LLMServer hot-swap.
+``test_registry_state_api_and_dashboard`` is split in two:
 ``test_registry_state_api`` and ``test_registry_on_dashboard``.
 ``test_llm_server_weights_channel_
 swaps_to_published_manifest`` is the port's own: an LLMServer on the CPU
@@ -400,6 +398,35 @@ def test_commit_parts_dedups_replicated_rectangles(tmp_path):
     m = ckpt.commit_parts(ms, ckpt.new_ckpt_id(1), 1, parts, expected_workers=3)
     assert len(m["arrays"]["rep"]["shards"]) == 1
     assert np.array_equal(ckpt.restore(m, store)["rep"], rep)
+
+
+# ---------------------------------------------------------------------------
+# the seeded chaos scenario (fresh in-process cluster per run — MUST come
+# before the shared-session tests: a scenario refuses to run while this
+# process is already a driver, and module fixtures tear down at module end)
+# ---------------------------------------------------------------------------
+
+def test_ckpt_chaos_scenario_smoke():
+    """The seeded ckpt_kill_mid_save scenario end to end (quick shape):
+    aborted attempts invisible, committed manifests byte-identical after
+    the faults, refcounts balanced after eviction, delayed swap lands."""
+    from ray_tpu_torch.chaos.scenarios import run_scenario
+
+    report = run_scenario("ckpt_kill_mid_save", seed=11, quick=True)
+    assert report["ok"], report
+    assert report["details"]["aborted"] >= 2
+    assert report["details"]["committed"] >= 2
+    assert report["invariants"]["faults_visible_in_metrics"]["ok"]
+
+
+def test_ckpt_scenario_replays_identically():
+    from ray_tpu_torch.chaos.scenarios import run_scenario
+
+    r1 = run_scenario("ckpt_kill_mid_save", seed=77, quick=True)
+    assert r1["ok"], r1
+    r2 = run_scenario("ckpt_kill_mid_save", seed=77, quick=True)
+    assert r2["ok"], r2
+    assert r1["injections"] and r1["injections"] == r2["injections"]
 
 
 # ---------------------------------------------------------------------------

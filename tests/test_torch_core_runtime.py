@@ -376,28 +376,7 @@ def test_placement_group_and_gpu_resource(port_rt):
         rt.get(needs_gpu.remote(), timeout=30)
 
 
-def _defer_chaos_cli():
-    from ray_tpu_torch import chaos
-
-    chaos.cmd_chaos(None)
-
-
-def _defer_lint_cli():
-    from ray_tpu_torch.__main__ import main
-
-    main(["lint"])
-
-
-@pytest.mark.parametrize("call", [_defer_chaos_cli, _defer_lint_cli],
-                         ids=["chaos_cli", "lint_cli"])
-def test_deferred_parts_raise_naming_the_roadmap(port_rt, call):
-    """What the port leaves for later raises a typed NotImplementedError that
-    names its ROADMAP item; nothing is silently skipped."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        call()
-
-
-def _ported_dag():
+def _ported_dag(_capsys):
     from ray_tpu_torch.dag import DAGNode, InputNode
 
     @rt.remote
@@ -417,7 +396,7 @@ def _ported_dag():
         rt.kill(a)
 
 
-def _ported_device_trace():
+def _ported_device_trace(_capsys):
     from ray_tpu_torch.obs import profiler
     from ray_tpu_torch.util import tracing
 
@@ -427,13 +406,42 @@ def _ported_device_trace():
             pass
 
 
-@pytest.mark.parametrize("call", [_ported_dag, _ported_device_trace], ids=["dag", "device_trace"])
-def test_formerly_deferred_parts_now_run(port_rt, call):
+def _ported_chaos_cli(capsys):
+    import argparse
+
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.chaos.scenarios import SCENARIOS, run_scenario
+
+    assert chaos.cmd_chaos(argparse.Namespace(chaos_cmd="list")) == 0
+    listed = capsys.readouterr().out
+    assert all(f"  {name} " in listed for name in SCENARIOS) and "tpu.preempt" in listed
+    # A scenario builds its own in-process cluster: inside this session it
+    # refuses, typed, before touching anything.
+    with pytest.raises(RuntimeError, match="fresh process-level session"):
+        run_scenario("worker_kill", seed=0, quick=True)
+
+
+def _ported_lint_cli(capsys):
+    import os
+
+    from ray_tpu_torch.__main__ import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["lint", "--no-cache", os.path.join(os.path.dirname(rt.__file__), "analysis")])
+    assert exc.value.code == 0
+    assert "graftlint: 0 findings" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("call", [_ported_dag, _ported_device_trace, _ported_chaos_cli, _ported_lint_cli],
+                         ids=["dag", "device_trace", "chaos_cli", "lint_cli"])
+def test_formerly_deferred_parts_now_run(port_rt, call, capsys):
     """What used to raise NotImplementedError here is ported: ``bind``
-    builds a DAG node that compiles and executes, and the device trace
-    goes through torch.profiler (on a host without a GPU, its typed
-    refusal, as the reference's on a host without a device backend)."""
-    call()
+    builds a DAG node that compiles and executes, the device trace goes
+    through torch.profiler (on a host without a GPU, its typed refusal, as
+    the reference's on a host without a device backend), ``chaos list``
+    names every scenario and fault site, and ``lint`` runs the port's own
+    analyzer."""
+    call(capsys)
 
 
 def test_get_reraises_a_typed_deadline_at_once(port_rt):

@@ -12,7 +12,8 @@ gymnasium). The parallel package, the ring and Ulysses attentions and the
 sharded train program import neither, and neither does a tensor-parallel
 serve replica. The operator surface (runtime_env, job, autoscaler, the GCE
 GPU provider, dashboard, the start/stop CLI and ``__main__``, the run
-ledger and replay) imports neither, and no torch."""
+ledger and replay) imports neither, and no torch; nor do the analyzer
+(every module of ``analysis/``) and the chaos scenario runner."""
 import subprocess
 import sys
 from pathlib import Path
@@ -90,6 +91,32 @@ finally:
     rt.shutdown()
 print("clean")
 """
+
+
+_ANALYSIS_PROBE = """
+import sys
+import ray_tpu_torch.analysis, ray_tpu_torch.analysis.cache, ray_tpu_torch.analysis.cli
+import ray_tpu_torch.analysis.engine, ray_tpu_torch.analysis.index, ray_tpu_torch.analysis.rules_async
+import ray_tpu_torch.analysis.rules_buffers, ray_tpu_torch.analysis.rules_chaos
+import ray_tpu_torch.analysis.rules_fsm, ray_tpu_torch.analysis.rules_security
+import ray_tpu_torch.analysis.rules_xfile, ray_tpu_torch.chaos.scenarios
+from ray_tpu_torch.analysis import lint_source
+r = lint_source("import asyncio\\n\\n\\nasync def f():\\n    asyncio.create_task(g())\\n", "fixture.py")
+assert [f.rule for f in r.findings] == ["bg-strong-ref"], r.findings
+bad = [m for m in sys.modules if m in ("ray_tpu", "jax", "torch") or m.startswith(("ray_tpu.", "jax.", "torch."))]
+assert not bad, bad
+print("clean")
+"""
+
+
+def test_analysis_and_scenarios_import_no_jax_no_ray_tpu_and_no_torch():
+    """Every module of the port's analyzer (pure ``ast``, with its own fsm
+    table read from the port's ``core/task_state.py``) and the chaos
+    scenario runner import neither jax, ray_tpu nor torch."""
+    out = subprocess.run([sys.executable, "-c", _ANALYSIS_PROBE], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 def test_port_worker_loads_no_jax_and_no_ray_tpu():

@@ -1,8 +1,8 @@
 """The port's state introspection (``ray_tpu_torch.state``, the controller's
 task index): the cases of ``tests/test_state_api.py`` on port clusters.
 ``test_every_worker_event_kind_maps_to_fsm`` lints the port's worker with
-``ray_tpu.analysis`` until the port has its own analyzer (ROADMAP Queue 1
-item 2c), as ``test_torch_lint_gate.py`` does.
+the port's own analyzer (``ray_tpu_torch.analysis``), whose fsm-emitter
+rule reads the port's ``core/task_state.py``.
 
 State introspection: task lifecycle FSM completeness, the controller's
 bounded per-task index (filters, truncation, eviction accounting), the
@@ -47,7 +47,7 @@ def test_every_worker_event_kind_maps_to_fsm():
     has silently gone dead and gates nothing — and that worker.py's kinds
     all map into the FSM."""
     import ray_tpu_torch.core.worker as worker_mod
-    from ray_tpu.analysis import lint_paths
+    from ray_tpu_torch.analysis import lint_paths
 
     result = lint_paths([worker_mod.__file__])
     stats = result.stats.get(worker_mod.__file__, {}).get("fsm-emitter")
