@@ -94,10 +94,15 @@ class LLMServer:
         self._cond = threading.Condition()
         self._done: dict[str, dict] = {}
         self._ttft: dict[str, float] = {}
+        # Submit time (perf_counter) of each request whose first token has
+        # not been handed over yet.
+        self._submitted: dict[str, float] = {}
         # TTFT distribution (serve.ttft_s), the SLO engine's
-        # time-to-first-token metric in the reference.
+        # time-to-first-token metric in the reference: from the call of
+        # generate / generate_stream to the hand-over of the first event
+        # with tokens to the request's stream or result.
         self._ttft_hist = _metrics.Histogram(
-            "serve.ttft_s", "time to first token per request",
+            "serve.ttft_s", "time to first token per request, submit to hand-over",
             boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 30],
             tag_keys=("deployment",),
         ).bind(tags={"deployment": "llm"})
@@ -155,23 +160,27 @@ class LLMServer:
                     with self._cond:
                         for rid in aborts:
                             self.engine.abort(rid)
+                            self._submitted.pop(rid, None)
                 if not self.engine.has_work():
                     continue
                 events = self.engine.step()
             if not events:
                 continue
             with self._cond:
+                handed = time.perf_counter()
                 for rid, ev in events.items():
                     # The engine repeats ttft_s on a finish event of a later
-                    # step; observe each request's first token once (the
-                    # reference observes both).
+                    # step; keep each request's first (the reference
+                    # observes both).
                     if ev.get("ttft_s") is not None and rid not in self._ttft:
                         self._ttft[rid] = ev["ttft_s"]
-                        self._ttft_hist.observe(ev["ttft_s"])
+                    if ev.get("new_tokens") and rid in self._submitted:
+                        self._ttft_hist.observe(handed - self._submitted.pop(rid))
                     stream = self._streams.get(rid)
                     if stream is not None:
                         stream.append(ev)
                     if ev.get("finished"):
+                        self._submitted.pop(rid, None)
                         self._done[rid] = {
                             "tokens": ev["tokens"],
                             "ttft_s": self._ttft.pop(rid, ev.get("ttft_s")),
@@ -193,6 +202,7 @@ class LLMServer:
         deadline, and a caller that gave up (qos.cancel_requested()) ABORTS
         the engine request — in both cases the engine slot frees at once
         instead of decoding to completion for nobody."""
+        submitted = time.perf_counter()
         sampling = _coerce_sampling(sampling)
         qctx = _qos.current()
         rem = qctx.remaining() if qctx is not None else None
@@ -204,6 +214,7 @@ class LLMServer:
         with _tracing.child_span("llm.generate", max_tokens=max_tokens):
             with self._cond:
                 rid = self._new_rid()
+                self._submitted[rid] = submitted
                 self.engine.add_request(rid, tokens, max_tokens, sampling=sampling)
                 self._cond.notify_all()
                 deadline = time.time() + timeout_s
@@ -235,6 +246,7 @@ class LLMServer:
         QoS: the wait is capped at the request's deadline and a cancelled
         caller aborts the engine request between yields; closing the
         generator early aborts it too."""
+        submitted = time.perf_counter()
         sampling = _coerce_sampling(sampling)
         qctx = _qos.current()
         rem = qctx.remaining() if qctx is not None else None
@@ -245,6 +257,7 @@ class LLMServer:
         with self._cond:
             rid = self._new_rid()
             self._streams[rid] = deque()
+            self._submitted[rid] = submitted
             self.engine.add_request(rid, tokens, max_tokens, sampling=sampling)
             self._cond.notify_all()
         deadline = time.time() + timeout_s
@@ -279,6 +292,7 @@ class LLMServer:
             with self._cond:
                 self._streams.pop(rid, None)
                 self._done.pop(rid, None)
+                self._submitted.pop(rid, None)
                 if not finished:
                     # Consumer left early (client disconnect): free the slot.
                     self._aborts.add(rid)

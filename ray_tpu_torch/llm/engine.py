@@ -91,7 +91,7 @@ from ray_tpu_torch.models.transformer import (
 from ray_tpu_torch.ops.attention import check_head_dim, flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.parallel._shard_map import per_slot as _per_slot
-from ray_tpu_torch.util.tracing import child_span
+from ray_tpu_torch.util import tracing as _tracing
 
 
 @dataclasses.dataclass
@@ -159,6 +159,11 @@ class _Slot:
     # prefix cache at retire (miss or partial hit; an exact hit adds nothing).
     prompt_tokens: Optional[np.ndarray] = None
     prompt_len: int = 0
+    # (trace_id, parent span id) of a traced or recorded request, and the
+    # start (tracing.now()) of its span in progress: prefill, then the wait
+    # of its first token.
+    trace: Optional[tuple] = None
+    span_t: float = 0.0
 
 
 def _dense_attend(q, k_new, v_new, ck, cv, lengths):
@@ -318,6 +323,18 @@ class LLMEngine:
         self.prefix_hits = 0
         self.prefix_partial_hits = 0
         self.prefix_misses = 0
+        # Work counters (counters() reads them), always on: steps taken and
+        # the slots held over them; prefill launches (groups, and each tail
+        # or chunk prefill), their real prompt tokens and their launched
+        # tokens (rows x bucket: real plus padding); decode blocks and the
+        # token steps inside them.
+        self.steps = 0
+        self.slot_steps = 0
+        self.prefill_groups = 0
+        self.prefill_real_tokens = 0
+        self.prefill_launched_tokens = 0
+        self.decode_blocks = 0
+        self.decode_token_steps = 0
         # Slots mid chunked-prefill: slot -> full prompt tokens. Their device
         # length / page-table rows stay zeroed until the last chunk lands (the
         # decode block's writes for them go to dead page 0), so decode
@@ -426,9 +443,10 @@ class LLMEngine:
     def _sample(self, logits, temps, top_ps, top_ks, gen, host_temps):
         """Per-row sampling; all-greedy batches (known from the host copy of
         the temperatures) take the argmax directly."""
-        if (host_temps <= 0.0).all():
-            return logits.argmax(dim=-1).to(torch.int32)
-        return sample_batch(logits, temps, top_ps, top_ks, gen, cap=self.ec.sample_topk_cap)
+        with _tracing.phase("llm.engine.sample", rows=logits.shape[0]):
+            if (host_temps <= 0.0).all():
+                return logits.argmax(dim=-1).to(torch.int32)
+            return sample_batch(logits, temps, top_ps, top_ks, gen, cap=self.ec.sample_topk_cap)
 
     # -- per-slot phases (one slot unless tensor-parallel) ------------------
     def _rep(self, t) -> list:
@@ -753,7 +771,11 @@ class LLMEngine:
         need = self._pages_needed(len(tokens), sampling.max_tokens)
         if self.paged and need > self.ec.total_pages - 1:
             raise ValueError(f"request needs {need} pages > pool size {self.ec.total_pages - 1}")
-        self.waiting.append((req_id, np.asarray(tokens, np.int32), sampling, time.perf_counter()))
+        # The caller's trace (or a fresh one while recording), and when it queued.
+        trace = _tracing.request_trace()
+        if trace is not None:
+            trace = (trace[0], trace[1], _tracing.now())
+        self.waiting.append((req_id, np.asarray(tokens, np.int32), sampling, time.perf_counter(), trace))
 
     def abort(self, req_id: str) -> None:
         """Drop a request whose consumer went away: dequeue it, or free its
@@ -836,6 +858,21 @@ class LLMEngine:
                     self.free_pages.append(p)
                     need_pages -= 1
 
+    def counters(self) -> dict:
+        """A snapshot of the work counters (see __init__); a reader takes
+        the difference of two."""
+        return {k: getattr(self, k) for k in (
+            "steps", "slot_steps", "prefill_groups", "prefill_real_tokens",
+            "prefill_launched_tokens", "decode_blocks", "decode_token_steps")}
+
+    def _prefill_dispatch(self, bucket: int, rows: int, real: int):
+        """Counts one prefill launch of ``rows`` x ``bucket`` tokens holding
+        ``real`` prompt tokens, and opens its phase."""
+        self.prefill_groups += 1
+        self.prefill_real_tokens += real
+        self.prefill_launched_tokens += rows * bucket
+        return _tracing.phase("llm.engine.prefill.dispatch", bucket=bucket, rows=rows, real_tokens=real)
+
     @property
     def prefix_cache_stats(self) -> dict:
         return {
@@ -870,260 +907,312 @@ class LLMEngine:
         free pages (prefill, grouped by length bucket, groups dispatched
         back to back then fetched in order), then one decode block for all
         slots. Returns {req_id: {"token": int, "new_tokens": [...],
-        "finished": bool, "ttft_s": float|None, "tokens": [..] when done}}."""
-        events: dict[str, dict] = {}
-        retired = False
-        ps = self.ec.page_size
-        # 1. admit: page-budgeted assignment of waiting requests to free slots.
-        admitted: list[tuple[int, str, np.ndarray, int, int, float]] = []
-        cache_hits: list[tuple[int, int]] = []  # (slot, last prompt token)
-        tail_admitted: list[tuple[int, str, np.ndarray, int, int, float]] = []
-        use_cache = self.paged and self.ec.prefix_cache
-        use_chunked = self.paged and self.ec.chunked_prefill > 0
-        chunk_size = self.ec.chunked_prefill
-        for i in range(self.ec.max_slots):
-            if not self.waiting or self.slots[i] is not None:
-                continue
-            req_id, tokens, sp, arrived = self.waiting[0]
-            P = len(tokens)
-            need = self._pages_needed(P, sp.max_tokens)
-            # Cache lookup before eviction, longest match first: the full
-            # prompt (exact hit), then page-aligned prefixes (partial hit).
-            hit_dg = hit_entry = None
-            hit_len = 0
-            if use_cache:
-                for n, dg in reversed(self._prefix_digests(tokens)):
-                    e = self._prefix_cache.get(dg)
-                    if e is not None and e["prompt_len"] == n and (n == P or n % ps == 0):
-                        hit_dg, hit_entry, hit_len = dg, e, n
-                        break
-            if need > len(self.free_pages):
-                self._evict_prefix_cache(
-                    need - len(self.free_pages),
-                    protect=frozenset((hit_dg,)) if hit_dg is not None else frozenset(),
-                )
-            if need > len(self.free_pages):
-                # If nothing is running (no retire will ever free pages) and
-                # the only reclaimable pages are the would-be hit's own,
-                # degrade to a miss rather than stall the queue forever.
-                if hit_dg is not None and not any(s is not None for s in self.slots):
+        "finished": bool, "ttft_s": float|None, "tokens": [..] when done}}.
+
+        ``ttft_s`` is the first token on the host: from ``add_request`` to
+        the fetch of the prefill group (or decode block) that made it; step()
+        returns it after the step's decode block.
+
+        Each part of the step is a ``tracing.phase`` (``llm.engine.step``,
+        ``.admit``, ``.prefill.dispatch``, ``.prefill.fetch``,
+        ``.decode.dispatch``, ``.decode.fetch``, ``.emit``; ``.sample``
+        inside the dispatches); a traced or recorded request records
+        ``llm.request.queue``, ``.prefill`` and ``.first_token_wait``."""
+        with _tracing.phase("llm.engine.step") as step_phase:
+            events: dict[str, dict] = {}
+            retired = False
+            ps = self.ec.page_size
+            # 1. admit: page-budgeted assignment of waiting requests to free slots.
+            admitted: list[tuple[int, str, np.ndarray, int, int, float]] = []
+            cache_hits: list[tuple[int, int]] = []  # (slot, last prompt token)
+            tail_admitted: list[tuple[int, str, np.ndarray, int, int, float]] = []
+            firsts: list[tuple[tuple, float, str]] = []  # traced first tokens: (trace, fetched at, req)
+            use_cache = self.paged and self.ec.prefix_cache
+            use_chunked = self.paged and self.ec.chunked_prefill > 0
+            chunk_size = self.ec.chunked_prefill
+            n_admitted, blocked = 0, False
+            with _tracing.phase("llm.engine.admit") as admit_phase:
+                for i in range(self.ec.max_slots):
+                    if not self.waiting or self.slots[i] is not None:
+                        continue
+                    req_id, tokens, sp, arrived, trace = self.waiting[0]
+                    P = len(tokens)
+                    need = self._pages_needed(P, sp.max_tokens)
+                    # Cache lookup before eviction, longest match first: the full
+                    # prompt (exact hit), then page-aligned prefixes (partial hit).
                     hit_dg = hit_entry = None
-                    self._evict_prefix_cache(need - len(self.free_pages))
-                if need > len(self.free_pages):
-                    break  # head-of-line blocks until pages free (FIFO fairness)
-            self.waiting.popleft()
-            pages = [self.free_pages.popleft() for _ in range(need)]
-            exact = hit_entry is not None and hit_len == P
-            self.slots[i] = _Slot(
-                req_id=req_id, max_tokens=sp.max_tokens, pages=pages,
-                n_generated=0 if exact else 1, arrived_at=arrived,
-                stop_ids=tuple(sp.stop_token_ids), ignore_eos=sp.ignore_eos,
-                prompt_tokens=tokens if (use_cache and not exact) else None,
-                prompt_len=P,
-            )
-            self.samp_temps[i] = sp.temperature
-            self.samp_top_ps[i] = sp.top_p
-            self.samp_top_ks[i] = sp.top_k
-            row = np.zeros(self.ppseq, np.int32)
-            row[: len(pages)] = pages
-            self.page_tables[i] = row
-            self.lengths[i] = P
-            if hit_entry is not None:
-                # Copy the matched pages into this request's own pages now,
-                # before a later admission of this step can evict the entry
-                # and recycle its pages.
-                self._prefix_cache.move_to_end(hit_dg)
-                n_pp = len(hit_entry["pages"])
-                self._copy_pages(hit_entry["pages"], pages[:n_pp])
-                if exact:
-                    # Decode from position P-1: the block re-derives that
-                    # position's KV and emits the first token; no prefill.
-                    self.prefix_hits += 1
-                    self.lengths[i] = P - 1
-                    cache_hits.append((i, int(tokens[-1])))
-                elif use_chunked and P - hit_len > chunk_size:
-                    # A long tail chunks too, starting at the cached prefix.
-                    self.prefix_partial_hits += 1
-                    self.slots[i].n_generated = 0
-                    self.slots[i].prefill_pos = hit_len
-                    self._prefilling[i] = tokens
-                else:
-                    # Prefill only the tail over the cached context.
-                    self.prefix_partial_hits += 1
-                    tail_admitted.append((i, req_id, tokens, hit_len, sp.max_tokens, arrived))
-                continue
-            if use_cache:
-                self.prefix_misses += 1
-            if use_chunked and P > chunk_size:
-                # One chunk per step, interleaved with the decode blocks.
-                self.slots[i].n_generated = 0
-                self.slots[i].prefill_pos = 0
-                self._prefilling[i] = tokens
-            else:
-                bucket = next(b for b in self.buckets if b >= P)
-                admitted.append((i, req_id, tokens, bucket, sp.max_tokens, arrived))
-        if cache_hits:
-            idx_t = self._tensor([h[0] for h in cache_hits], torch.long)
-            self.d_lengths[idx_t] = self._tensor([int(self.lengths[h[0]]) for h in cache_hits], torch.int32)
-            self.d_last[idx_t] = self._tensor([h[1] for h in cache_hits], torch.int32)
-        # 2. dispatch prefill groups back to back, then fetch them in order.
-        # (Eager dispatch of a group costs about as much host time as its
-        # device work, so on the GPU the groups finish before the first
-        # fetch and share one TTFT; see PERF.md.)
-        by_bucket: dict[int, list] = {}
-        for item in admitted:
-            by_bucket.setdefault(item[3], []).append(item)
-        dispatched: list[tuple[list, torch.Tensor]] = []  # (chunk, toks_dev)
-        for bucket, group in by_bucket.items():
-            n_pg = bucket // ps if self.paged else 1
-            while group:
-                k = next(kb for kb in self.k_buckets if kb <= len(group))
-                chunk, group = group[:k], group[k:]
-                idxs = np.asarray([it[0] for it in chunk], np.int64)
-                padded = np.zeros((k, bucket), np.int32)
-                lens = np.zeros(k, np.int32)
-                pgs = np.zeros((k, n_pg), np.int32) if self.paged else None
-                for j, (i, _rid, tokens, _b, _mt, _arr) in enumerate(chunk):
-                    padded[j, : len(tokens)] = tokens
-                    lens[j] = len(tokens)
-                    if self.paged:
-                        pgs[j] = self.page_tables[i, :n_pg]  # trailing zeros -> dead sink
-                # Paged: per-request page rows; dense: the slot index.
-                third = pgs if self.paged else idxs
-                toks_dev = self._prefill_batch_impl(padded, lens, third, self._gen, idxs)
-                idx_t = self._tensor(idxs)
-                self.d_lengths[idx_t] = self._tensor(lens)
-                self.d_last[idx_t] = toks_dev
-                dispatched.append((chunk, toks_dev))
-        # Partial prefix hits: one tail prefill each over the cached context.
-        for (i, req_id, tokens, start, mt, arrived) in tail_admitted:
-            P = len(tokens)
-            padded, ctx, tpg = self._tail_args(self.page_tables[i], tokens, start, P - start)
-            toks_dev = self._tail_prefill_impl(padded, start, P, ctx, tpg, self._gen, i)
-            self.d_lengths[i] = P
-            self.d_last[i] = toks_dev[0]
-            dispatched.append(([(i, req_id, tokens, None, mt, arrived)], toks_dev))
-        # 2c. chunked prefill: every mid-prefill slot advances by one chunk, so
-        # decode stalls by at most one chunk per unfinished prefill per step.
-        # The last chunk samples the request's first token and installs the
-        # slot's device rows (until then they stay zeroed: decode writes for
-        # it land in dead page 0).
-        chunk_dispatched = bool(self._prefilling)
-        for i in sorted(self._prefilling):
-            slot = self.slots[i]
-            tokens = self._prefilling[i]
-            P = len(tokens)
-            start = slot.prefill_pos
-            n_tok = min(chunk_size, P - start)
-            padded, ctx, tpg = self._tail_args(self.page_tables[i], tokens, start, n_tok)
-            if start + n_tok < P:
-                # An intermediate chunk: all its tokens are real, so it masks
-                # at its own end; nothing is sampled.
-                self._tail_prefill_logits(padded, start, start + n_tok, ctx, tpg)
-                slot.prefill_pos = start + n_tok
-                continue
-            toks_dev = self._tail_prefill_impl(padded, start, P, ctx, tpg, self._gen, i)
-            del self._prefilling[i]
-            slot.prefill_pos = P
-            slot.n_generated = 1
-            self.d_lengths[i] = P
-            self.d_last[i] = toks_dev[0]
-            dispatched.append(([(i, slot.req_id, tokens, None, slot.max_tokens, slot.arrived_at)], toks_dev))
-        if admitted or cache_hits or tail_admitted or chunk_dispatched:
-            self.d_page_tables = self._tensor(self._masked_page_tables())
-            self.d_temps = self._tensor(self.samp_temps)
-            self.d_top_ps = self._tensor(self.samp_top_ps)
-            self.d_top_ks = self._tensor(self.samp_top_ks)
-        # Fetch per group, in dispatch order.
-        for chunk, toks_dev in dispatched:
-            group_toks = toks_dev.tolist()
-            now = time.perf_counter()
-            for (i, req_id, _tokens, _b, _mt, arrived), tok in zip(chunk, group_toks):
+                    hit_len = 0
+                    if use_cache:
+                        for n, dg in reversed(self._prefix_digests(tokens)):
+                            e = self._prefix_cache.get(dg)
+                            if e is not None and e["prompt_len"] == n and (n == P or n % ps == 0):
+                                hit_dg, hit_entry, hit_len = dg, e, n
+                                break
+                    if need > len(self.free_pages):
+                        self._evict_prefix_cache(
+                            need - len(self.free_pages),
+                            protect=frozenset((hit_dg,)) if hit_dg is not None else frozenset(),
+                        )
+                    if need > len(self.free_pages):
+                        # If nothing is running (no retire will ever free pages) and
+                        # the only reclaimable pages are the would-be hit's own,
+                        # degrade to a miss rather than stall the queue forever.
+                        if hit_dg is not None and not any(s is not None for s in self.slots):
+                            hit_dg = hit_entry = None
+                            self._evict_prefix_cache(need - len(self.free_pages))
+                        if need > len(self.free_pages):
+                            blocked = True
+                            break  # head-of-line blocks until pages free (FIFO fairness)
+                    self.waiting.popleft()
+                    n_admitted += 1
+                    pages = [self.free_pages.popleft() for _ in range(need)]
+                    exact = hit_entry is not None and hit_len == P
+                    self.slots[i] = _Slot(
+                        req_id=req_id, max_tokens=sp.max_tokens, pages=pages,
+                        n_generated=0 if exact else 1, arrived_at=arrived,
+                        stop_ids=tuple(sp.stop_token_ids), ignore_eos=sp.ignore_eos,
+                        prompt_tokens=tokens if (use_cache and not exact) else None,
+                        prompt_len=P,
+                    )
+                    if trace is not None:
+                        t = _tracing.now()
+                        _tracing.record_span("llm.request.queue", trace, trace[2], t, request=req_id)
+                        self.slots[i].trace, self.slots[i].span_t = trace, t
+                    self.samp_temps[i] = sp.temperature
+                    self.samp_top_ps[i] = sp.top_p
+                    self.samp_top_ks[i] = sp.top_k
+                    row = np.zeros(self.ppseq, np.int32)
+                    row[: len(pages)] = pages
+                    self.page_tables[i] = row
+                    self.lengths[i] = P
+                    if hit_entry is not None:
+                        # Copy the matched pages into this request's own pages now,
+                        # before a later admission of this step can evict the entry
+                        # and recycle its pages.
+                        self._prefix_cache.move_to_end(hit_dg)
+                        n_pp = len(hit_entry["pages"])
+                        self._copy_pages(hit_entry["pages"], pages[:n_pp])
+                        if exact:
+                            # Decode from position P-1: the block re-derives that
+                            # position's KV and emits the first token; no prefill.
+                            self.prefix_hits += 1
+                            self.lengths[i] = P - 1
+                            cache_hits.append((i, int(tokens[-1])))
+                        elif use_chunked and P - hit_len > chunk_size:
+                            # A long tail chunks too, starting at the cached prefix.
+                            self.prefix_partial_hits += 1
+                            self.slots[i].n_generated = 0
+                            self.slots[i].prefill_pos = hit_len
+                            self._prefilling[i] = tokens
+                        else:
+                            # Prefill only the tail over the cached context.
+                            self.prefix_partial_hits += 1
+                            tail_admitted.append((i, req_id, tokens, hit_len, sp.max_tokens, arrived))
+                        continue
+                    if use_cache:
+                        self.prefix_misses += 1
+                    if use_chunked and P > chunk_size:
+                        # One chunk per step, interleaved with the decode blocks.
+                        self.slots[i].n_generated = 0
+                        self.slots[i].prefill_pos = 0
+                        self._prefilling[i] = tokens
+                    else:
+                        bucket = next(b for b in self.buckets if b >= P)
+                        admitted.append((i, req_id, tokens, bucket, sp.max_tokens, arrived))
+                admit_phase.set(admitted=n_admitted, blocked_on_pages=blocked)
+            held = sum(1 for s in self.slots if s is not None)
+            self.steps += 1
+            self.slot_steps += held
+            step_phase.set(admitted=n_admitted, slots=held)
+            if cache_hits:
+                idx_t = self._tensor([h[0] for h in cache_hits], torch.long)
+                self.d_lengths[idx_t] = self._tensor([int(self.lengths[h[0]]) for h in cache_hits], torch.int32)
+                self.d_last[idx_t] = self._tensor([h[1] for h in cache_hits], torch.int32)
+            # 2. dispatch prefill groups back to back, then fetch them in order.
+            # (Eager dispatch of a group costs about as much host time as its
+            # device work, so on the GPU the groups finish before the first
+            # fetch and share one TTFT; see PERF.md.)
+            by_bucket: dict[int, list] = {}
+            for item in admitted:
+                by_bucket.setdefault(item[3], []).append(item)
+            dispatched: list[tuple[list, torch.Tensor]] = []  # (chunk, toks_dev)
+            for bucket, group in by_bucket.items():
+                n_pg = bucket // ps if self.paged else 1
+                while group:
+                    k = next(kb for kb in self.k_buckets if kb <= len(group))
+                    chunk, group = group[:k], group[k:]
+                    with self._prefill_dispatch(bucket, k, sum(len(it[2]) for it in chunk)):
+                        idxs = np.asarray([it[0] for it in chunk], np.int64)
+                        padded = np.zeros((k, bucket), np.int32)
+                        lens = np.zeros(k, np.int32)
+                        pgs = np.zeros((k, n_pg), np.int32) if self.paged else None
+                        for j, (i, _rid, tokens, _b, _mt, _arr) in enumerate(chunk):
+                            padded[j, : len(tokens)] = tokens
+                            lens[j] = len(tokens)
+                            if self.paged:
+                                pgs[j] = self.page_tables[i, :n_pg]  # trailing zeros -> dead sink
+                        # Paged: per-request page rows; dense: the slot index.
+                        third = pgs if self.paged else idxs
+                        toks_dev = self._prefill_batch_impl(padded, lens, third, self._gen, idxs)
+                        idx_t = self._tensor(idxs)
+                        self.d_lengths[idx_t] = self._tensor(lens)
+                        self.d_last[idx_t] = toks_dev
+                    dispatched.append((chunk, toks_dev))
+            # Partial prefix hits: one tail prefill each over the cached context.
+            for (i, req_id, tokens, start, mt, arrived) in tail_admitted:
+                P = len(tokens)
+                padded, ctx, tpg = self._tail_args(self.page_tables[i], tokens, start, P - start)
+                with self._prefill_dispatch(len(padded), 1, P - start):
+                    toks_dev = self._tail_prefill_impl(padded, start, P, ctx, tpg, self._gen, i)
+                    self.d_lengths[i] = P
+                    self.d_last[i] = toks_dev[0]
+                dispatched.append(([(i, req_id, tokens, None, mt, arrived)], toks_dev))
+            # 2c. chunked prefill: every mid-prefill slot advances by one chunk, so
+            # decode stalls by at most one chunk per unfinished prefill per step.
+            # The last chunk samples the request's first token and installs the
+            # slot's device rows (until then they stay zeroed: decode writes for
+            # it land in dead page 0).
+            chunk_dispatched = bool(self._prefilling)
+            for i in sorted(self._prefilling):
                 slot = self.slots[i]
-                slot.first_token_at = now
-                slot.emitted.append(tok)
-                events[req_id] = {
-                    "token": tok,
-                    "new_tokens": [tok],
-                    "finished": False,
-                    "ttft_s": now - arrived,
-                }
-                retired |= self._maybe_finish(i, events)
-        # 3. decode: one block over all slots. Queue pressure shrinks the
-        # block so the next admission wave starts sooner. Slots mid chunked
-        # prefill ride along masked (writes to dead page 0, tokens dropped)
-        # but do not drive the block's budget arithmetic.
-        active = [i for i, s in enumerate(self.slots)
-                  if s is not None and i not in self._prefilling]
-        toks = None
-        n = 0
-        if active:
-            remaining = [self.slots[i].max_tokens - self.slots[i].n_generated for i in active]
-            positive = [r for r in remaining if r > 0]
-            cap = self.ec.max_seq - 1 - int(max(self.lengths[i] for i in active))
-            if positive and cap > 0:
-                # Short block under queue pressure, or while any slot still
-                # owes its first token (an exact prefix hit gets it from this
-                # block; a full block would delay it by block_size steps).
-                awaiting_first = bool(self._prefilling) or any(
-                    not self.slots[i].emitted for i in active)
-                block = (self.block_sizes[0] if (self.waiting or awaiting_first)
-                         else self.block_sizes[-1])
-                # Snap DOWN to a block size that fits: an oversized block
-                # advances lengths past max_seq - 1 and would overwrite the
-                # longest slot's earlier KV.
-                fits = [b for b in self.block_sizes if b <= min(block, cap)]
-                if fits:
-                    n = fits[-1]
-                    toks, self.d_last, self.d_lengths = self._decode(n, self._gen)
+                tokens = self._prefilling[i]
+                P = len(tokens)
+                start = slot.prefill_pos
+                n_tok = min(chunk_size, P - start)
+                padded, ctx, tpg = self._tail_args(self.page_tables[i], tokens, start, n_tok)
+                with self._prefill_dispatch(len(padded), 1, n_tok):
+                    if start + n_tok < P:
+                        # An intermediate chunk: all its tokens are real, so it masks
+                        # at its own end; nothing is sampled.
+                        self._tail_prefill_logits(padded, start, start + n_tok, ctx, tpg)
+                        slot.prefill_pos = start + n_tok
+                        continue
+                    toks_dev = self._tail_prefill_impl(padded, start, P, ctx, tpg, self._gen, i)
+                del self._prefilling[i]
+                slot.prefill_pos = P
+                slot.n_generated = 1
+                self.d_lengths[i] = P
+                self.d_last[i] = toks_dev[0]
+                dispatched.append(([(i, slot.req_id, tokens, None, slot.max_tokens, slot.arrived_at)], toks_dev))
+            if admitted or cache_hits or tail_admitted or chunk_dispatched:
+                self.d_page_tables = self._tensor(self._masked_page_tables())
+                self.d_temps = self._tensor(self.samp_temps)
+                self.d_top_ps = self._tensor(self.samp_top_ps)
+                self.d_top_ks = self._tensor(self.samp_top_ks)
+            # Fetch per group, in dispatch order.
+            for chunk, toks_dev in dispatched:
+                with _tracing.phase("llm.engine.prefill.fetch", rows=len(chunk)):
+                    group_toks = toks_dev.tolist()
+                    now = time.perf_counter()
+                    for (i, req_id, _tokens, _b, _mt, arrived), tok in zip(chunk, group_toks):
+                        slot = self.slots[i]
+                        slot.first_token_at = now
+                        if slot.trace is not None:
+                            firsts.append(self._first_token_traced(slot))
+                        slot.emitted.append(tok)
+                        events[req_id] = {
+                            "token": tok,
+                            "new_tokens": [tok],
+                            "finished": False,
+                            "ttft_s": now - arrived,
+                        }
+                        retired |= self._maybe_finish(i, events)
+            # 3. decode: one block over all slots. Queue pressure shrinks the
+            # block so the next admission wave starts sooner. Slots mid chunked
+            # prefill ride along masked (writes to dead page 0, tokens dropped)
+            # but do not drive the block's budget arithmetic.
+            active = [i for i, s in enumerate(self.slots)
+                      if s is not None and i not in self._prefilling]
+            toks = None
+            n = 0
+            if active:
+                remaining = [self.slots[i].max_tokens - self.slots[i].n_generated for i in active]
+                positive = [r for r in remaining if r > 0]
+                cap = self.ec.max_seq - 1 - int(max(self.lengths[i] for i in active))
+                if positive and cap > 0:
+                    # Short block under queue pressure, or while any slot still
+                    # owes its first token (an exact prefix hit gets it from this
+                    # block; a full block would delay it by block_size steps).
+                    awaiting_first = bool(self._prefilling) or any(
+                        not self.slots[i].emitted for i in active)
+                    block = (self.block_sizes[0] if (self.waiting or awaiting_first)
+                             else self.block_sizes[-1])
+                    # Snap DOWN to a block size that fits: an oversized block
+                    # advances lengths past max_seq - 1 and would overwrite the
+                    # longest slot's earlier KV.
+                    fits = [b for b in self.block_sizes if b <= min(block, cap)]
+                    if fits:
+                        n = fits[-1]
+                        self.decode_blocks += 1
+                        self.decode_token_steps += n
+                        with _tracing.phase("llm.engine.decode.dispatch", n=n, slots=len(active)):
+                            toks, self.d_last, self.d_lengths = self._decode(n, self._gen)
+                        for i in active:
+                            self.slots[i].n_generated += n
+                    else:
+                        # No block size fits the headroom left by the longest
+                        # slot(s): retire them (they are within block_sizes[0]
+                        # tokens of max_seq) so the next step has room to decode.
+                        for i in active:
+                            if int(self.lengths[i]) + self.block_sizes[0] >= self.ec.max_seq:
+                                slot = self.slots[i]
+                                ev = events.setdefault(slot.req_id, {"ttft_s": None})
+                                ev["finished"] = True
+                                ev["finish_reason"] = "length"  # context-cap retirement
+                                ev["tokens"] = list(slot.emitted)
+                                ev["ttft_s"] = ev.get("ttft_s") or (
+                                    (slot.first_token_at or slot.arrived_at) - slot.arrived_at
+                                )
+                                self._retire(i)
+                                retired = True
+            if toks is not None:
+                with _tracing.phase("llm.engine.decode.fetch", n=n):
+                    block_toks = toks.cpu().numpy()  # [n, B]
+            with _tracing.phase("llm.engine.emit") as emit_phase:
+                emitted = 0
+                for step_i in range(n if toks is not None else 0):
                     for i in active:
-                        self.slots[i].n_generated += n
-                else:
-                    # No block size fits the headroom left by the longest
-                    # slot(s): retire them (they are within block_sizes[0]
-                    # tokens of max_seq) so the next step has room to decode.
-                    for i in active:
-                        if int(self.lengths[i]) + self.block_sizes[0] >= self.ec.max_seq:
-                            slot = self.slots[i]
-                            ev = events.setdefault(slot.req_id, {"ttft_s": None})
-                            ev["finished"] = True
-                            ev["finish_reason"] = "length"  # context-cap retirement
-                            ev["tokens"] = list(slot.emitted)
-                            ev["ttft_s"] = ev.get("ttft_s") or (
-                                (slot.first_token_at or slot.arrived_at) - slot.arrived_at
-                            )
-                            self._retire(i)
-                            retired = True
-        if toks is not None:
-            block_toks = toks.cpu().numpy()  # [n, B]
-            for step_i in range(n):
-                for i in active:
-                    slot = self.slots[i]
-                    if slot is None or len(slot.emitted) >= slot.n_generated:
-                        continue  # finished, or this block overshot its budget
-                    tok = int(block_toks[step_i, i])
-                    self.lengths[i] += 1
-                    slot.emitted.append(tok)
-                    ev = events.setdefault(slot.req_id, {"finished": False, "ttft_s": None})
-                    if slot.first_token_at is None:
-                        # An exact prefix hit's first token comes out of the block.
-                        slot.first_token_at = time.perf_counter()
-                        ev["ttft_s"] = slot.first_token_at - slot.arrived_at
-                    ev["token"] = tok
-                    ev.setdefault("new_tokens", []).append(tok)
-                    retired |= self._maybe_finish(i, events)
-        if retired:
-            # Re-sync device mirrors so retired slots stop advancing their
-            # (now meaningless) lengths toward max_seq, and their writes land
-            # in the dead page. Mid-prefill slots stay masked.
-            self.d_lengths = self._tensor(self._masked_lengths())
-            self.d_page_tables = self._tensor(self._masked_page_tables())
-            last = np.zeros(self.ec.max_slots, np.int32)
-            for i, s in enumerate(self.slots):
-                if s is not None and s.emitted:
-                    last[i] = s.emitted[-1]
-            self.d_last = self._tensor(last)
+                        slot = self.slots[i]
+                        if slot is None or len(slot.emitted) >= slot.n_generated:
+                            continue  # finished, or this block overshot its budget
+                        tok = int(block_toks[step_i, i])
+                        self.lengths[i] += 1
+                        slot.emitted.append(tok)
+                        emitted += 1
+                        ev = events.setdefault(slot.req_id, {"finished": False, "ttft_s": None})
+                        if slot.first_token_at is None:
+                            # An exact prefix hit's first token comes out of the block.
+                            slot.first_token_at = time.perf_counter()
+                            ev["ttft_s"] = slot.first_token_at - slot.arrived_at
+                            if slot.trace is not None:
+                                firsts.append(self._first_token_traced(slot))
+                        ev["token"] = tok
+                        ev.setdefault("new_tokens", []).append(tok)
+                        retired |= self._maybe_finish(i, events)
+                if retired:
+                    # Re-sync device mirrors so retired slots stop advancing their
+                    # (now meaningless) lengths toward max_seq, and their writes land
+                    # in the dead page. Mid-prefill slots stay masked.
+                    self.d_lengths = self._tensor(self._masked_lengths())
+                    self.d_page_tables = self._tensor(self._masked_page_tables())
+                    last = np.zeros(self.ec.max_slots, np.int32)
+                    for i, s in enumerate(self.slots):
+                        if s is not None and s.emitted:
+                            last[i] = s.emitted[-1]
+                    self.d_last = self._tensor(last)
+                emit_phase.set(tokens=emitted)
+            if firsts:
+                t = _tracing.now()
+                for trace, fetched, req_id in firsts:
+                    _tracing.record_span("llm.request.first_token_wait", trace, fetched, t, request=req_id)
         return events
+
+    def _first_token_traced(self, slot: _Slot) -> tuple:
+        """Ends a traced request's prefill span at its first token's fetch;
+        returns what ends its first-token wait when step() returns."""
+        t = _tracing.now()
+        _tracing.record_span("llm.request.prefill", slot.trace, slot.span_t, t, request=slot.req_id)
+        return slot.trace, t, slot.req_id
 
     def _maybe_finish(self, i: int, events: dict) -> bool:
         slot = self.slots[i]
@@ -1153,7 +1242,7 @@ class LLMEngine:
         """Synchronous single-request convenience: returns {"tokens", "ttft_s"}."""
         req_id = f"g{time.monotonic_ns()}"
         # No-op unless a trace is active in this thread.
-        with child_span("llm.engine.generate", max_tokens=max_tokens):
+        with _tracing.child_span("llm.engine.generate", max_tokens=max_tokens):
             self.add_request(req_id, tokens, max_tokens, sampling=sampling)
             ttft = None
             while True:

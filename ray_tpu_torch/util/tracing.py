@@ -24,6 +24,15 @@ hot path is one ``ContextVar.get`` returning None (guards sit before any
 dict building or id minting); ``child_span`` is a no-op then. Creating a
 root span is explicit (``span(...)`` or the serve proxy's ``x-trace``
 header / ``set_trace_enabled``).
+
+In-process recording: ``start_recording`` / ``stop_recording`` keep this
+process's span events in a bounded list as well, with or without a core
+worker (an engine driven in-process has none); the list renders through
+``render_timeline``. ``phase`` is the entry point of internal phase spans
+(the LLM engine's step and its parts): a Span while recording is on or a
+trace is active, and a ``torch.profiler.record_function`` range while
+torch's profiler runs, so the phase lies on the device trace's timeline;
+with none of the three it costs three reads and returns a shared no-op.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import contextlib
 import contextvars
 import json
 import os
+import sys
+import threading
 import time
 from typing import Optional
 
@@ -44,12 +55,23 @@ _ctx: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
 _trace_all = os.environ.get("RAYTPU_TRACE", "") in ("1", "true", "on")
 
 
+# The in-memory sink of span events (start_recording): a list while on,
+# appended to under its lock by whichever thread ends a span.
+_recording: Optional[list] = None
+_recording_limit = 0
+_recording_lock = threading.Lock()
+
+
 def now() -> float:
     """THE event/span timestamp clock. Every producer on the observability
     plane (worker `_event`/`_task_event`, controller `_event`, Span,
     `event()`) stamps through here, so state-index timings and span timings
     land on one comparable timeline — swap the time source in one place,
-    never per-emitter."""
+    never per-emitter.
+
+    It is also torch.profiler's clock: a Kineto Chrome trace's event ``ts``
+    (microseconds) plus its ``baseTimeNanoseconds`` / 1e3 is this clock in
+    microseconds, so spans stamped here line up with a device trace."""
     return time.time()
 
 
@@ -127,12 +149,40 @@ def deactivate(token):
     _ctx.reset(token)
 
 
+def start_recording(limit: int = 100_000) -> None:
+    """Keeps this process's span events in memory until ``stop_recording``
+    (at most ``limit``; later ones are not kept), besides shipping them to
+    the core worker when there is one. Starting again discards what was
+    kept."""
+    global _recording, _recording_limit
+    _recording_limit = int(limit)
+    _recording = []
+
+
+def stop_recording() -> list[dict]:
+    """Stops the in-memory recording and returns its span events in the
+    order they were recorded, each when it ended (``{"kind": "span", "name",
+    "trace_id", "span_id", "parent_id", "ts", "dur", "attrs"?}``, times on
+    ``now()``'s clock): the list ``render_timeline`` writes out as a Chrome
+    trace."""
+    global _recording
+    out, _recording = _recording, None
+    return out or []
+
+
 def _record_event(ev: dict):
     """Append a span event to this process's task-event buffer (ships to the
-    controller with the metrics reporter). No core worker -> dropped."""
-    from ray_tpu_torch.core import api
-
-    core = api._global_worker
+    controller with the metrics reporter) and, while recording, to the
+    in-memory list. No core worker and no recording -> dropped."""
+    buf = _recording
+    if buf is not None:
+        with _recording_lock:
+            if len(buf) < _recording_limit:
+                buf.append({"kind": "span", **ev})
+    # A core worker exists only once the runtime's api module is loaded:
+    # looked up, not imported, so in-process recording pulls in no runtime.
+    api = sys.modules.get("ray_tpu_torch.core.api")
+    core = getattr(api, "_global_worker", None)
     if core is not None:
         core._event("span", **ev)
 
@@ -213,6 +263,103 @@ def child_span(name: str, **attrs):
     if _ctx.get() is None:
         return contextlib.nullcontext()
     return Span(name, attrs or None)
+
+
+def request_trace() -> Optional[tuple]:
+    """The (trace_id, parent span id) that a unit of work started now (a
+    request queued for another thread) should record its spans under: the
+    active trace, else a fresh trace id while recording, else None (record
+    nothing)."""
+    ctx = _ctx.get()
+    if ctx is not None:
+        return ctx
+    return (new_trace_id(), "") if _recording is not None else None
+
+
+def record_span(name: str, trace: tuple, start: float, end: float, **attrs) -> None:
+    """Records a span measured elsewhere (``start``/``end`` on ``now()``'s
+    clock) under ``trace``, a ``request_trace()`` value."""
+    ev = {
+        "name": name,
+        "trace_id": trace[0],
+        "span_id": new_span_id(),
+        "parent_id": trace[1],
+        "ts": start,
+        "dur": end - start,
+    }
+    if attrs:
+        ev["attrs"] = attrs
+    _record_event(ev)
+
+
+def _profiler_on() -> bool:
+    """Whether torch's profiler is running in this process (read without
+    importing torch: the flag lives in torch.autograd.profiler)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+class _NoPhase:
+    """The shared no-op ``phase`` returns when nothing would record it."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+_NO_PHASE = _NoPhase()
+
+
+class _Phase:
+    __slots__ = ("_span", "_range")
+
+    def __init__(self, name: str, attrs: dict, span: bool, profiled: bool):
+        self._span = Span(name, attrs) if span else None
+        if profiled:
+            import torch
+
+            self._range = torch.autograd.profiler.record_function(name)
+        else:
+            self._range = None
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        if self._span is not None:
+            self._span.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._span is not None:
+            self._span.__exit__(exc_type, exc, tb)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
+
+    def set(self, **attrs):
+        """Attributes known only once the phase's work is done."""
+        if self._span is not None:
+            self._span.attrs.update(attrs)
+
+
+def phase(name: str, **attrs):
+    """An internal phase (not tied to one request): a Span, child of the
+    active trace or a root while recording, and a ``record_function`` range
+    while torch's profiler runs. With neither recording, a trace nor the
+    profiler, a shared no-op. ``set(**attrs)`` on what it yields adds
+    attributes before the span closes."""
+    span = _recording is not None or _ctx.get() is not None
+    profiled = _profiler_on()
+    if not (span or profiled):
+        return _NO_PHASE
+    return _Phase(name, attrs, span, profiled)
 
 
 def get_task_events(limit: int = 20000) -> list[dict]:

@@ -450,20 +450,30 @@ def test_spans_only_under_a_trace(weights, monkeypatch):
         eng.generate([5, 6, 7], 3)
         tracing.event("tick", n=1)
     names = [e["name"] for e in events]
-    assert names == ["llm.engine.generate", "tick", "client"]
-    gen = events[0]
+    # One step (prefill, then one block of decode_block tokens), its phases
+    # and the request's spans, in the order they end.
+    assert names == [
+        "llm.request.queue", "llm.engine.admit", "llm.engine.sample", "llm.engine.prefill.dispatch",
+        "llm.request.prefill", "llm.engine.prefill.fetch", *["llm.engine.sample"] * eng.ec.decode_block,
+        "llm.engine.decode.dispatch", "llm.engine.decode.fetch", "llm.engine.emit",
+        "llm.request.first_token_wait", "llm.engine.step", "llm.engine.generate", "tick", "client"]
+    gen = events[-3]
     assert gen["trace_id"] == root.trace_id and gen["parent_id"] == root.span_id
     assert gen["attrs"] == {"max_tokens": 3} and gen["dur"] >= 0
-    assert events[2]["parent_id"] == "" and tracing.current_trace() is None
-    # The server's generate span, with the engine's generate under nothing
-    # (the stepping thread runs outside the caller's trace).
+    assert all(e["trace_id"] == root.trace_id for e in events)
+    assert events[-1]["parent_id"] == "" and tracing.current_trace() is None
+    # The server's generate span, with the request's spans under it: the
+    # stepping thread runs outside the caller's trace, so its steps record
+    # nothing, but the request carries the caller's trace into the engine.
     events.clear()
     llm = _port_server(weights[1])
     try:
         with tracing.span("client"):
             llm.generate([5, 6, 7], 3, timeout_s=TIMEOUT_S)
-        assert [e["name"] for e in events] == ["llm.generate", "client"]
-        assert events[0]["parent_id"] == events[1]["span_id"]
+        assert [e["name"] for e in events] == [
+            "llm.request.queue", "llm.request.prefill", "llm.request.first_token_wait", "llm.generate", "client"]
+        assert events[3]["parent_id"] == events[4]["span_id"]
+        assert all(e["parent_id"] == events[3]["span_id"] for e in events[:3])
     finally:
         llm.__raytpu_exit__()
 
