@@ -4329,7 +4329,7 @@ def _forced_streams(eng, prompts, forced=None):
     import torch
 
     calls, in_decode = [], [False]
-    sample, decode = eng._sample, eng._decode
+    sample, decode, graphs_on = eng._sample, eng._decode, eng._graphs_on
 
     def recorded(logits, *a):
         i = len(calls)
@@ -4346,10 +4346,12 @@ def _forced_streams(eng, prompts, forced=None):
             in_decode[0] = False
 
     eng._sample, eng._decode = recorded, flagged
+    eng._graphs_on = False  # a decode graph's replay would not call the wrapper
     try:
         drive(eng, prompts, MAX_TOKENS, prefix="f")
     finally:
         del eng._sample, eng._decode  # back to the class's methods
+        eng._graphs_on = graphs_on
     if forced is None:
         return calls
     if len(calls) != len(forced):

@@ -22,9 +22,14 @@ PyTorch's eager mode:
   in the JAX engine (no kernel there either).
 - A decode block of n steps is a Python loop; tokens stay on the device until
   the block ends, and one copy brings the [n, B] block back to the host.
-- The pools and the device mirrors (lengths, last tokens, page tables) are
-  updated in place: PyTorch has no buffer donation, and an in-place write is
-  what donation bought the JAX engine.
+  On one CUDA device with the paged layout that loop is captured once per
+  kind of block (its n, and whether every slot is greedy) as a CUDA graph
+  at B = max_slots and replayed, so a block costs one launch on the host
+  instead of hundreds of eager ops a token step (``_decode``).
+- The pools and the device mirrors (lengths, last tokens, page tables,
+  sampling parameters) are updated in place and never rebound: PyTorch has
+  no buffer donation, and an in-place write is what donation bought the JAX
+  engine; the decode graphs read the mirrors at fixed addresses.
 - Parameters are cast once to the activation dtype at load; the JAX engine
   kept fp32 parameters and cast each one at every matmul, which gives the
   same values.
@@ -61,6 +66,7 @@ keeps advancing inside a block) are clamped explicitly here.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import math
 import time
@@ -88,6 +94,7 @@ from ray_tpu_torch.models.transformer import (
     rope,
     tree_from_leaves,
 )
+from ray_tpu_torch.ops import paged_attention as _k4
 from ray_tpu_torch.ops.attention import check_head_dim, flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.parallel._shard_map import per_slot as _per_slot
@@ -166,6 +173,15 @@ class _Slot:
     span_t: float = 0.0
 
 
+@dataclasses.dataclass
+class _DecodeGraph:
+    """One captured paged decode block: the graph, its static token output
+    [n, B] (rewritten by each replay), and the K4 launches it holds."""
+    graph: object  # torch.cuda.CUDAGraph
+    toks: torch.Tensor
+    k4_launches: int
+
+
 def _dense_attend(q, k_new, v_new, ck, cv, lengths):
     """Dense-layout one-token attention of one slot: writes k/v [B,1,KV,Hd]
     at each row's length into its [B, S, KV, Hd] cache slice (in place),
@@ -226,6 +242,11 @@ class LLMEngine:
         self.paged = self.ec.kv_layout == "paged"
         if self.ec.kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {self.ec.kv_layout!r} (paged|dense)")
+        # Decode blocks replay CUDA graphs on one card with the paged layout;
+        # the dense layout, tensor parallelism and the CPU stay eager. A
+        # caller whose hook must see every token step's call (a replay runs
+        # no Python) turns it off on the instance.
+        self._graphs_on = self.paged and self.mesh is None and self.device.type == "cuda"
         if not self.paged and (self.ec.total_pages > 0 or self.ec.page_size != 128):
             # Page knobs only mean something in the paged layout; silently
             # ignoring an explicit page budget could exhaust device memory.
@@ -327,7 +348,8 @@ class LLMEngine:
         # the slots held over them; prefill launches (groups, and each tail
         # or chunk prefill), their real prompt tokens and their launched
         # tokens (rows x bucket: real plus padding); decode blocks and the
-        # token steps inside them.
+        # token steps inside them; decode blocks replayed from a CUDA graph,
+        # and graphs captured.
         self.steps = 0
         self.slot_steps = 0
         self.prefill_groups = 0
@@ -335,6 +357,8 @@ class LLMEngine:
         self.prefill_launched_tokens = 0
         self.decode_blocks = 0
         self.decode_token_steps = 0
+        self.decode_graph_blocks = 0
+        self.decode_graph_captures = 0
         # Slots mid chunked-prefill: slot -> full prompt tokens. Their device
         # length / page-table rows stay zeroed until the last chunk lands (the
         # decode block's writes for them go to dead page 0), so decode
@@ -366,8 +390,13 @@ class LLMEngine:
         activation dtype on this engine's device, or, under tensor
         parallelism, resharded onto the engine's layout (a tree of
         ShardedTensors, or of plain tensors split shard by shard). The caller
-        must exclude step() for the duration; the KV cache is kept."""
+        must exclude step() for the duration; the KV cache is kept. The
+        decode graphs are dropped (they replay against the old weights'
+        addresses); the next block of each kind captures anew."""
         from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+        self._graphs: dict[tuple, _DecodeGraph] = {}  # (n, greedy) -> graph
+        self._graph_pool = None  # one memory pool for all of them: they never run at once
 
         if self.mesh is None:
             def whole(t):
@@ -440,11 +469,17 @@ class LLMEngine:
         the scheduler keeps mutating)."""
         return torch.tensor(a, dtype=dtype, device=self.device)
 
-    def _sample(self, logits, temps, top_ps, top_ks, gen, host_temps):
-        """Per-row sampling; all-greedy batches (known from the host copy of
-        the temperatures) take the argmax directly."""
+    def _put(self, mirror, a) -> None:
+        """Writes host data into a device mirror in place (a synchronous
+        copy, as ``_tensor``'s): the decode graphs read the mirrors at fixed
+        addresses, so they are never rebound."""
+        mirror.copy_(torch.from_numpy(a))
+
+    def _sample(self, logits, temps, top_ps, top_ks, gen, greedy):
+        """Per-row sampling; all-greedy batches (``greedy``, known from the
+        host copy of the temperatures) take the argmax directly."""
         with _tracing.phase("llm.engine.sample", rows=logits.shape[0]):
-            if (host_temps <= 0.0).all():
+            if greedy:
                 return logits.argmax(dim=-1).to(torch.int32)
             return sample_batch(logits, temps, top_ps, top_ks, gen, cap=self.ec.sample_topk_cap)
 
@@ -551,9 +586,10 @@ class LLMEngine:
         """Prefill one group and sample each request's first token -> [k]
         int32 on the device (not fetched)."""
         logits = self._prefill_logits(tokens, lengths, third)
+        temps = self.samp_temps[idxs]
         return self._sample(
-            logits, self._tensor(self.samp_temps[idxs]), self._tensor(self.samp_top_ps[idxs]),
-            self._tensor(self.samp_top_ks[idxs]), gen, self.samp_temps[idxs],
+            logits, self._tensor(temps), self._tensor(self.samp_top_ps[idxs]),
+            self._tensor(self.samp_top_ks[idxs]), gen, bool((temps <= 0.0).all()),
         )
 
     def _pool_rows(self, pages):
@@ -646,76 +682,131 @@ class LLMEngine:
         s = slice(i, i + 1)
         return self._sample(
             logits, self._tensor(self.samp_temps[s]), self._tensor(self.samp_top_ps[s]),
-            self._tensor(self.samp_top_ks[s]), gen, self.samp_temps[s],
+            self._tensor(self.samp_top_ks[s]), gen, bool(self.samp_temps[i] <= 0.0),
         )
 
-    def _decode_impl(self, last_tokens, lengths, page_tables, n_steps, gen, temps, top_ps, top_ks):
-        """n_steps tokens for every slot, paged layout. Returns
-        (toks [n_steps, B], last', lengths'), all on the device."""
+    def _decode_impl(self, last_tokens, lengths, page_tables, n_steps, gen, temps, top_ps, top_ks, greedy):
+        """n_steps tokens for every slot, paged layout; each token step
+        writes its tokens into ``last_tokens`` and advances ``lengths`` in
+        place. Returns (toks [n_steps, B], last_tokens, lengths), all on the
+        device. The body the decode graphs capture."""
         cfg = self.cfg
         ps = self.ec.page_size
         B = page_tables.shape[0]
         rows = torch.arange(B, device=self.device)
-        last, lens = last_tokens, lengths
         out = []
         for _ in range(n_steps):
-            xs = self._embed(last.long()[:, None])  # [B, 1, D] per slot
+            xs = self._embed(last_tokens.long()[:, None])  # [B, 1, D] per slot
             # Linear write position per slot: its page for len, plus offset.
             # (An empty slot's length may run past the table; its row is all
             # page 0, so the clamp only keeps the index in range.)
-            col = (lens // ps).clamp(max=self.ppseq - 1).long()
-            lins = self._rep((page_tables[rows, col] * ps + lens % ps).long())  # [B]
-            poss = self._rep(lens[:, None])
+            col = (lengths // ps).clamp(max=self.ppseq - 1).long()
+            lins = self._rep((page_tables[rows, col] * ps + lengths % ps).long())  # [B]
+            poss = self._rep(lengths[:, None])
             for li in range(cfg.n_layers):
                 qs, ks, vs = self._attn_in(xs, li, poss)
                 for s, (k_new, v_new) in enumerate(zip(ks, vs)):
                     self._kp[s][li][:, lins[s]] = k_new[:, 0].transpose(0, 1)  # [KV, B, Hd]
                     self._vp[s][li][:, lins[s]] = v_new[:, 0].transpose(0, 1)
-                os = self._paged_attention(qs, li, lens + 1, page_tables)  # [B, H, Hd] per slot
+                os = self._paged_attention(qs, li, lengths + 1, page_tables)  # [B, H, Hd] per slot
                 xs = self._attn_out_ffn(xs, li, [o[:, None] for o in os])
             logits = self._head(xs, lambda x: x[:, 0], pick_first=False)
-            last = self._sample(logits, temps, top_ps, top_ks, gen, self.samp_temps)
-            lens = lens + 1
-            out.append(last)
-        return torch.stack(out), last, lens
+            out.append(self._sample(logits, temps, top_ps, top_ks, gen, greedy))
+            last_tokens.copy_(out[-1])
+            lengths.add_(1)
+        return torch.stack(out), last_tokens, lengths
 
-    def _decode_impl_dense(self, last_tokens, lengths, n_steps, gen, temps, top_ps, top_ks):
+    def _decode_impl_dense(self, last_tokens, lengths, n_steps, gen, temps, top_ps, top_ks, greedy):
         """Dense layout: n_steps for every slot; attention is the einsum over
-        each slot's contiguous [S] row."""
+        each slot's contiguous [S] row. Writes and returns the mirrors as
+        ``_decode_impl`` does."""
         cfg = self.cfg
-        last, lens = last_tokens, lengths
         out = []
         for _ in range(n_steps):
-            xs = self._embed(last.long()[:, None])  # [B, 1, D] per slot
-            lenss = self._rep(lens)
-            poss = self._rep(lens[:, None])
+            xs = self._embed(last_tokens.long()[:, None])  # [B, 1, D] per slot
+            lenss = self._rep(lengths)
+            poss = self._rep(lengths[:, None])
             for li in range(cfg.n_layers):
                 qs, ks, vs = self._attn_in(xs, li, poss)
                 os = [_dense_attend(q, k, v, self._kp[s][li], self._vp[s][li], lenss[s])
                       for s, (q, k, v) in enumerate(zip(qs, ks, vs))]
                 xs = self._attn_out_ffn(xs, li, os)
             logits = self._head(xs, lambda x: x[:, 0], pick_first=False)
-            last = self._sample(logits, temps, top_ps, top_ks, gen, self.samp_temps)
-            lens = lens + 1
-            out.append(last)
-        return torch.stack(out), last, lens
+            out.append(self._sample(logits, temps, top_ps, top_ks, gen, greedy))
+            last_tokens.copy_(out[-1])
+            lengths.add_(1)
+        return torch.stack(out), last_tokens, lengths
 
-    def _decode(self, n, gen):
+    def _decode_eager(self, n, gen, greedy):
         if self.paged:
             return self._decode_impl(
                 self.d_last, self.d_lengths, self.d_page_tables, n, gen,
-                self.d_temps, self.d_top_ps, self.d_top_ks,
+                self.d_temps, self.d_top_ps, self.d_top_ks, greedy,
             )
         return self._decode_impl_dense(
-            self.d_last, self.d_lengths, n, gen, self.d_temps, self.d_top_ps, self.d_top_ks,
+            self.d_last, self.d_lengths, n, gen, self.d_temps, self.d_top_ps, self.d_top_ks, greedy,
         )
+
+    def _decode(self, n, gen):
+        """One decode block of n token steps for every slot -> (toks [n, B],
+        d_last, d_lengths), on the device; the mirrors advance in place.
+
+        With decode graphs on (one CUDA device, paged layout) the block
+        replays the graph of its kind: n, and whether every slot is greedy
+        (the host copy of the temperatures, as ``_sample`` decides). The
+        first block of a kind runs eagerly, which sets up every kernel,
+        library handle and buffer the body touches, and then captures it
+        (``warmup`` captures every kind). A sampled block that draws from
+        another generator than the engine's stays eager."""
+        greedy = bool((self.samp_temps <= 0.0).all())
+        if not (self._graphs_on and (greedy or gen is self._gen)):
+            return self._decode_eager(n, gen, greedy)
+        block = self._graphs.get((n, greedy))
+        if block is None:
+            out = self._decode_eager(n, gen, greedy)
+            self._capture(n, greedy)
+            return out
+        block.graph.replay()
+        _k4.LAUNCHES += block.k4_launches
+        self.decode_graph_blocks += 1
+        return block.toks, self.d_last, self.d_lengths
+
+    def _capture(self, n: int, greedy: bool) -> None:
+        """Captures the paged decode block of n token steps at B =
+        max_slots, greedy or drawing from the engine's generator (whose
+        state the graph registers, so each replay advances its stream).
+        Capturing runs nothing: the engine's state is unchanged. The K4
+        launches the capture recorded are taken back out of
+        ``paged_attention.LAUNCHES``; each replay adds them. Thread-local
+        capture: the server's callers may touch the card from other
+        threads meanwhile. The garbage collector pauses during the capture:
+        a collection there could destroy an unreachable engine's graphs,
+        which invalidates the capture."""
+        graph = torch.cuda.CUDAGraph()
+        if not greedy:
+            graph.register_generator_state(self._gen)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before, collecting = _k4.LAUNCHES, gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+                toks = self._decode_eager(n, self._gen, greedy)[0]
+        finally:
+            launches, _k4.LAUNCHES = _k4.LAUNCHES - before, before
+            if collecting:
+                gc.enable()
+        self._graphs[(n, greedy)] = _DecodeGraph(graph, toks, launches)
+        self.decode_graph_captures += 1
 
     @torch.no_grad()
     def warmup(self, buckets=None, k_values=None):
         """Runs every (bucket, k) prefill shape and both decode block sizes
         once before serving (against the dead page), so first-call costs
         (kernel builds, library handles, allocator growth) stay out of the
-        first requests' TTFT; then resets the device mirrors it dirtied."""
+        first requests' TTFT; with decode graphs on, captures the graph of
+        every block size, greedy and sampled; then resets the device mirrors
+        it dirtied."""
         if buckets is None:
             buckets = self.buckets
         else:
@@ -752,6 +843,11 @@ class LLMEngine:
             logits = torch.zeros(k, self.cfg.vocab_size, dtype=torch.float32, device=self.device)
             top_ks = torch.full((k,), 2, dtype=torch.int32, device=self.device)
             sample_batch(logits, ones, ones / 2, top_ks, gen, cap=self.ec.sample_topk_cap).cpu()
+        if self._graphs_on:
+            for n in self.block_sizes:
+                for greedy in (True, False):
+                    if (n, greedy) not in self._graphs:
+                        self._capture(n, greedy)
         if self.paged and self.ec.prefix_cache:
             self._copy_pages([0], [0])  # the prefix cache's page copy, dead page onto itself
         # Reset device mirrors dirtied by the dummy executions.
@@ -785,8 +881,8 @@ class LLMEngine:
         for i, s in enumerate(self.slots):
             if s is not None and s.req_id == req_id:
                 self._retire(i)
-                self.d_lengths = self._tensor(self._masked_lengths())
-                self.d_page_tables = self._tensor(self._masked_page_tables())
+                self._put(self.d_lengths, self._masked_lengths())
+                self._put(self.d_page_tables, self._masked_page_tables())
                 break
 
     def has_work(self) -> bool:
@@ -863,7 +959,8 @@ class LLMEngine:
         the difference of two."""
         return {k: getattr(self, k) for k in (
             "steps", "slot_steps", "prefill_groups", "prefill_real_tokens",
-            "prefill_launched_tokens", "decode_blocks", "decode_token_steps")}
+            "prefill_launched_tokens", "decode_blocks", "decode_token_steps",
+            "decode_graph_blocks", "decode_graph_captures")}
 
     def _prefill_dispatch(self, bucket: int, rows: int, real: int):
         """Counts one prefill launch of ``rows`` x ``bucket`` tokens holding
@@ -1095,10 +1192,10 @@ class LLMEngine:
                 self.d_last[i] = toks_dev[0]
                 dispatched.append(([(i, slot.req_id, tokens, None, slot.max_tokens, slot.arrived_at)], toks_dev))
             if admitted or cache_hits or tail_admitted or chunk_dispatched:
-                self.d_page_tables = self._tensor(self._masked_page_tables())
-                self.d_temps = self._tensor(self.samp_temps)
-                self.d_top_ps = self._tensor(self.samp_top_ps)
-                self.d_top_ks = self._tensor(self.samp_top_ks)
+                self._put(self.d_page_tables, self._masked_page_tables())
+                self._put(self.d_temps, self.samp_temps)
+                self._put(self.d_top_ps, self.samp_top_ps)
+                self._put(self.d_top_ks, self.samp_top_ks)
             # Fetch per group, in dispatch order.
             for chunk, toks_dev in dispatched:
                 with _tracing.phase("llm.engine.prefill.fetch", rows=len(chunk)):
@@ -1145,8 +1242,10 @@ class LLMEngine:
                         n = fits[-1]
                         self.decode_blocks += 1
                         self.decode_token_steps += n
-                        with _tracing.phase("llm.engine.decode.dispatch", n=n, slots=len(active)):
-                            toks, self.d_last, self.d_lengths = self._decode(n, self._gen)
+                        replays = self.decode_graph_blocks
+                        with _tracing.phase("llm.engine.decode.dispatch", n=n, slots=len(active)) as dph:
+                            toks = self._decode(n, self._gen)[0]
+                            dph.set(graph=int(self.decode_graph_blocks > replays))
                         for i in active:
                             self.slots[i].n_generated += n
                     else:
@@ -1193,13 +1292,13 @@ class LLMEngine:
                     # Re-sync device mirrors so retired slots stop advancing their
                     # (now meaningless) lengths toward max_seq, and their writes land
                     # in the dead page. Mid-prefill slots stay masked.
-                    self.d_lengths = self._tensor(self._masked_lengths())
-                    self.d_page_tables = self._tensor(self._masked_page_tables())
+                    self._put(self.d_lengths, self._masked_lengths())
+                    self._put(self.d_page_tables, self._masked_page_tables())
                     last = np.zeros(self.ec.max_slots, np.int32)
                     for i, s in enumerate(self.slots):
                         if s is not None and s.emitted:
                             last[i] = s.emitted[-1]
-                    self.d_last = self._tensor(last)
+                    self._put(self.d_last, last)
                 emit_phase.set(tokens=emitted)
             if firsts:
                 t = _tracing.now()

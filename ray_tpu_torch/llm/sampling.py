@@ -71,7 +71,7 @@ def sample_batch(logits, temps, top_ps, top_ks, generator, cap: int | None = Non
     top_vals, top_idx = torch.topk(scaled, cap, dim=-1)  # [B, cap], descending
     ks = torch.where(top_ks <= 0, cap, top_ks.clamp_max(cap))
     pos = torch.arange(cap, device=logits.device)[None, :]
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = logits.new_full((), float("-inf"))  # made on the device: no host copy (graph capture)
     masked = torch.where(pos < ks[:, None], top_vals, neg_inf)
     probs = torch.softmax(masked, dim=-1)
     cum = probs.cumsum(dim=-1)

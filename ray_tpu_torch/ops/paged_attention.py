@@ -129,6 +129,7 @@ def paged_attention_split_reference(q, k_pages, v_pages, lengths, page_indices, 
 
 _LIB = None
 _COUNTERS: dict = {}  # device -> int32 ticket counters, zero at rest
+_OUTGROWN: list = []  # counter buffers replaced by larger ones, never freed (see _counters)
 _N_SM: dict = {}
 
 
@@ -149,9 +150,21 @@ def _counters(device, n):
     """K4's ticket counters on `device`: one int32 per (sequence, kv head),
     zeroed once when the buffer is made or grown; each launch's merging
     blocks set theirs back to 0. Launches on one stream run in order, so
-    one buffer per device serves them all."""
+    one buffer per device serves them all.
+
+    A CUDA graph that captured a launch replays it against the buffer's
+    address and holds no reference to it, so a buffer that a larger one
+    replaces is kept (``_OUTGROWN``) rather than freed: its memory is never
+    handed to another tensor while such a graph may replay. Growing during a
+    capture would record the zeroing instead of running it, so it raises:
+    launch once at that size before capturing."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"paged kernel: {n} ticket counters are needed inside a CUDA graph capture; "
+                               "launch once at this batch before capturing")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

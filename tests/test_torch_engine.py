@@ -311,3 +311,57 @@ def test_paged_decode_matches_across_pool_layouts():
         outs.append(eng.generate(prompt, max_tokens=12)["tokens"])
     assert outs[0] == outs[1]
 
+
+
+MIRRORS = ("d_last", "d_lengths", "d_page_tables", "d_temps", "d_top_ps", "d_top_ks")
+
+
+def _run_script(eng, script, after_each=lambda: None):
+    """("add", rid, prompt, max_tokens) / ("step",) / ("drain",) / ("abort",
+    rid) on either engine; returns every step's events without their times.
+    ``after_each`` runs after every step and abort."""
+    record = []
+    for act in script:
+        if act[0] == "add":
+            eng.add_request(act[1], act[2], act[3])
+            continue
+        if act[0] == "abort":
+            eng.abort(act[1])
+            after_each()
+            continue
+        while eng.has_work():
+            record.append({rid: {k: v for k, v in ev.items() if k != "ttft_s"} for rid, ev in eng.step().items()})
+            after_each()
+            if act[0] == "step":
+                break
+    return record
+
+
+def test_device_mirrors_keep_their_storage(weights):
+    """The decode graphs read the device mirrors at fixed addresses, so no
+    step rebinds them: across admission, the re-sync after a retire,
+    abort(), an exact prefix hit and chunked prefill each keeps its storage.
+    The CPU engine replays and captures no graph, and its tokens are the JAX
+    engine's, step by step."""
+    jcfg, tcfg, jp, tp = weights("small")
+    kw = dict(kv_layout="paged", max_slots=3, max_seq=128, page_size=16, prefill_buckets=(16, 32),
+              decode_block=4, prefix_cache=True, chunked_prefill=32)
+    rng = np.random.default_rng(11)
+    short, mid, long_, gone = (rng.integers(1, 97, n).astype(np.int32) for n in (9, 20, 70, 12))
+    script = [("add", "a", short, 6), ("step",), ("add", "long", long_, 5), ("add", "b", mid, 12), ("drain",),
+              ("add", "hit", short, 6), ("add", "gone", gone, 40), ("step",), ("abort", "gone"), ("drain",)]
+    eng = LLMEngine(tcfg, params=tp, engine_config=EngineConfig(**kw), device="cpu")
+    ptrs = {m: getattr(eng, m).data_ptr() for m in MIRRORS}
+    mid_prefill = []
+
+    def same_storage():
+        assert {m: getattr(eng, m).data_ptr() for m in MIRRORS} == ptrs
+        mid_prefill.append(bool(eng._prefilling))
+
+    got = _run_script(eng, script, same_storage)
+    want = _run_script(JaxLLMEngine(jcfg, params=jp, engine_config=JaxEngineConfig(**kw)), script)
+    assert got == want
+    assert eng.prefix_cache_stats["hits"] == 1 and any(mid_prefill)
+    assert any(ev.get("finished") for step in got for ev in step.values())  # retires re-sync the mirrors
+    c = eng.counters()
+    assert c["decode_blocks"] > 0 and c["decode_graph_blocks"] == 0 and c["decode_graph_captures"] == 0

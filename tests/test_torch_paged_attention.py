@@ -114,3 +114,22 @@ def test_split_reference_matches_jax_kernel_and_plain(H, KV, pages_per_run):
     assert torch.isfinite(got).all() and not got[0].any()
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     np.testing.assert_allclose(got.numpy(), paged_attention_reference(*t).numpy(), **TOL)
+
+
+def test_outgrown_ticket_counters_are_never_freed():
+    """A CUDA graph that captured K4 replays it against the ticket counters'
+    address and holds no reference to them: a buffer that a larger batch
+    outgrows stays alive and zero, and later launches get the larger one."""
+    import gc
+    import weakref
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cpu")
+    old = pa._counters(dev, 1)
+    n, ref = old.numel(), weakref.ref(old)
+    del old
+    big = pa._counters(dev, n + 1)
+    gc.collect()
+    assert ref() is not None and ref() is not big and not ref().any()
+    assert big.numel() > n and pa._counters(dev, 1) is big
