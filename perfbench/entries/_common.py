@@ -1,5 +1,5 @@
 """What the entries share: the port's config from the benchmark's keywords,
-and the traced run's hooks on an engine.
+the serving comparison, and the traced run's hooks on an engine.
 
 The hooks wrap, as attributes of one engine instance and only in a traced
 run, the calls the benchmark measures around: ``step`` (wall time, slots
@@ -20,7 +20,6 @@ import torch
 
 from perfbench import weights
 from perfbench.metrics import _counts
-from perfbench.reference import decoder
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -30,14 +29,14 @@ def model_config(m: dict) -> dict:
     return {**m, "dtype": DTYPES[m["dtype"]], "param_dtype": DTYPES[m["param_dtype"]]}
 
 
-def served_readings(m: dict, seed: int, device, judged: list, control: bool = False) -> dict:
+def served_readings(cell, m: dict, seed: int, device, judged: list, control: bool = False) -> dict:
     """The serving comparison's numbers: the widest gap of the judged
     requests' served tokens below the plain reference's best (``program``)
     and, with ``control``, the same of the fp8 control's first choices. The
-    reference draws the seed's weights again."""
-    params = weights.make_params(m, seed, torch.bfloat16, device)
-    recs = decoder.served_gaps(params, m["rope_theta"],
-                               [(list(map(int, d["prompt"])), d["tokens"]) for d in judged], control)
+    cell's reference draws the seed's weights again."""
+    params = weights.make_params(cell.model().leaves(m), seed, torch.bfloat16, device)
+    recs = cell.reference().served_gaps(params, m, [(list(map(int, d["prompt"])), d["tokens"]) for d in judged],
+                                        control)
     del params
     free_cuda()
     out = {"program": {"max_logit_gap": max(r["gap"] for r in recs)},
@@ -64,16 +63,14 @@ class EngineHooks:
     the schedule's slice is active, the bounds of the K1 and K4 launches
     (``k1``/``k4``: (summed bound seconds, launches))."""
 
-    def __init__(self, eng, m: dict, sched, poll: bool = False):
-        self.eng, self.m, self.sched = eng, m, sched
+    def __init__(self, eng, model, m: dict, sched, poll: bool = False):
+        self.eng, self.model, self.m, self.sched = eng, model, m, sched
         self.counting = False
         self.step_s, self.occupancy, self.prefill = [], [], []
         self.window_flops = 0.0
         self.k1, self.k4 = [], []
         self._groups = []
         self._events = eng.device.type == "cuda"
-        _, _, self.h, self.kv, self.d, _, _ = _counts.dims(m)
-        self.L = m["n_layers"]
         orig_step, orig_prefill, orig_decode = eng.step, eng._prefill_batch_impl, eng._decode
 
         def step():
@@ -100,11 +97,11 @@ class EngineHooks:
                 out = orig_prefill(tokens, lengths, third, gen, idxs)
             end = self._event()
             if self.counting:
-                flops = _counts.prefill_flops(m, lens)
+                flops = _counts.prefill_flops(model, m, lens)
                 self.window_flops += flops
                 self._groups.append((flops, start, end))
                 if self.sched is not None and self.sched.active:
-                    self.k1.append((self.L * _counts.bound_s(*_counts.k1_cost(self.h, self.kv, self.d, lens)), self.L))
+                    self.k1.append(model.k1_bound(m, lens))
             return out
 
         def decode(n, gen):
@@ -130,13 +127,11 @@ class EngineHooks:
         for j in range(n):
             # Tokens the block computes that are handed over: a slot whose
             # budget ends inside the block computes the rest for nothing.
-            self.window_flops += sum(_counts.decode_token_flops(self.m, ln + j + 1)
+            self.window_flops += sum(_counts.decode_token_flops(self.model, self.m, ln + j + 1)
                                      for ln, o in zip(lens, owed) if j < o)
         if self.sched is not None and self.sched.active and lens:
-            ps = eng.ec.page_size
-            bound = sum(_counts.bound_s(*_counts.k4_cost(self.h, self.kv, self.d, [ln + j + 1 for ln in lens], ps))
-                        for j in range(n))
-            self.k4.append((self.L * bound, self.L * n))
+            self.k4.append(self.model.k4_bound(self.m, [[ln + j + 1 for ln in lens] for j in range(n)],
+                                               eng.ec.page_size))
 
     def prefill_spans(self):
         """[(prompt FLOPs, device seconds from the first to the last kernel

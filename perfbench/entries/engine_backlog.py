@@ -24,7 +24,8 @@ from perfbench.entries import _common
 class Entry:
     def __init__(self, cell, device):
         self.cell, self.device = cell, torch.device(device)
-        self.m = cell.model_kwargs()
+        self.model = cell.model()
+        self.m = self.model.port_kwargs(cell.config)
         self.mix = cell.traffic
         self.engine = None
 
@@ -32,22 +33,11 @@ class Entry:
         from ray_tpu_torch.llm.engine import EngineConfig, LLMEngine
         from ray_tpu_torch.models.transformer import TransformerConfig
 
-        params = weights.make_params(self.m, seed, torch.bfloat16, self.device)
+        params = weights.make_params(self.model.leaves(self.m), seed, torch.bfloat16, self.device)
         self.engine = LLMEngine(TransformerConfig(**_common.model_config(self.m)), params=params,
                                 engine_config=EngineConfig(**self.mix["engine"]), device=str(self.device))
         del params
         self.engine.warmup(buckets=tuple(self.mix["warmup_buckets"]))
-
-    def reload(self, seed: int):
-        """New weights for another seed, after the last window's requests
-        are dropped."""
-        eng = self.engine
-        eng.waiting.clear()
-        for s in list(eng.slots):
-            if s is not None:
-                eng.abort(s.req_id)
-        self.engine.set_params(weights.make_params(self.m, seed, torch.bfloat16, self.device))
-        _common.free_cuda()
 
     def _sampling(self, r):
         from ray_tpu_torch.llm.sampling import SamplingParams
@@ -89,7 +79,7 @@ class Entry:
 
         t0 = time.perf_counter()
         sched = tracing.Schedule(t0, seconds, self.mix.get("trace", {}), trace)
-        hooks = _common.EngineHooks(eng, self.m, sched) if trace else None
+        hooks = _common.EngineHooks(eng, self.model, self.m, sched) if trace else None
         if hooks:
             hooks.counting = True
         out_tokens, steps = 0, 0
@@ -119,4 +109,4 @@ class Entry:
         _common.free_cuda()
 
     def readings(self, seed: int, judged: list, control: bool = False) -> dict:
-        return _common.served_readings(self.m, seed, self.device, judged, control)
+        return _common.served_readings(self.cell, self.m, seed, self.device, judged, control)

@@ -28,22 +28,18 @@ from perfbench.entries import _common
 class Entry:
     def __init__(self, cell, device):
         self.cell, self.device = cell, torch.device(device)
-        self.m = cell.model_kwargs()
+        self.model = cell.model()
+        self.m = self.model.port_kwargs(cell.config)
         self.mix = cell.traffic
         self.server = None
 
     def build(self, seed: int):
         from ray_tpu_torch.llm.deployment import LLMServer
 
-        params = weights.make_params(self.m, seed, torch.bfloat16, self.device)
+        params = weights.make_params(self.model.leaves(self.m), seed, torch.bfloat16, self.device)
         self.server = LLMServer(_common.model_config(self.m), dict(self.mix["engine"]),
                                 warmup_buckets=tuple(self.mix["warmup_buckets"]), params=params,
                                 device=str(self.device))
-
-    def reload(self, seed: int):
-        """New weights for another seed, swapped in between two steps."""
-        self.server.apply_weights(weights.make_params(self.m, seed, torch.bfloat16, self.device))
-        _common.free_cuda()
 
     def window(self, seed: int, seconds: float, trace: bool = False, rate=None) -> dict:
         from ray_tpu_torch.llm.sampling import SamplingParams
@@ -76,7 +72,7 @@ class Entry:
         t0 = time.perf_counter() + 0.01
         t_end = t0 + seconds
         sched = tracing.Schedule(t0, seconds, self.mix.get("trace", {}), trace)
-        hooks = _common.EngineHooks(eng, self.m, sched, poll=True) if trace else None
+        hooks = _common.EngineHooks(eng, self.model, self.m, sched, poll=True) if trace else None
         late, futs = [], []
 
         def wait_until(when: float):
@@ -148,4 +144,4 @@ class Entry:
         _common.free_cuda()
 
     def readings(self, seed: int, judged: list, control: bool = False) -> dict:
-        return _common.served_readings(self.m, seed, self.device, judged, control)
+        return _common.served_readings(self.cell, self.m, seed, self.device, judged, control)

@@ -20,16 +20,20 @@ from perfbench import weights
 from perfbench.entries import _common
 from perfbench.harness import seed_for
 from perfbench.metrics import _counts
-from perfbench.reference import decoder
 
 
 class Entry:
     def __init__(self, cell, device):
         self.cell, self.device = cell, torch.device(device)
-        self.m = cell.model_kwargs()
+        self.model = cell.model()
+        self.m = self.model.port_kwargs(cell.config)
         self.mix = cell.traffic
         self.B, self.S = int(self.mix["batch"]), int(self.mix["seq"])
         self.state = None
+
+    def _params(self, seed: int) -> dict:
+        """The seed's weights in float32, the trained master type."""
+        return weights.make_params(self.model.leaves(self.m), seed, torch.float32, self.device)
 
     def _feed(self, seed: int):
         g = torch.Generator(device=self.device)
@@ -45,21 +49,14 @@ class Entry:
         init_state, self.train_step = make_train_step(cfg)
         g = torch.Generator(device=self.device)
         g.manual_seed(seed_for(seed, "init"))
-        self.state = init_state(g, device=self.device)
-        self.load(seed)
-
-    def load(self, seed: int):
-        """The seed's weights into the state's parameters (fresh AdamW), then
-        the checked steps and their readings."""
-        st = self.state
+        self.state = st = init_state(g, device=self.device)
+        # The seed's weights into the state's parameters, then the checked steps and their readings.
         prog = dict(weights.leaf_items(st["params"]))
-        mine = dict(weights.leaf_items(weights.make_params(self.m, seed, torch.float32, self.device)))
+        mine = dict(weights.leaf_items(self._params(seed)))
         with torch.no_grad():
             for n, dst in prog.items():
                 dst.copy_(mine[n])
         del mine
-        st["opt"].state.clear()
-        st["step"] = 0
         self.feed = self._feed(seed)
         beta1 = st["opt"].param_groups[0]["betas"][0]
         losses, grad_norms = [], None
@@ -70,14 +67,11 @@ class Entry:
                 # A step that left AdamW's state empty read as a zero gradient.
                 grad_norms = {n: float(torch.linalg.vector_norm(st["opt"].state[p]["exp_avg"])) / (1 - beta1)
                               if "exp_avg" in st["opt"].state.get(p, {}) else 0.0 for n, p in prog.items()}
-        start = dict(weights.leaf_items(weights.make_params(self.m, seed, torch.float32, self.device)))
+        start = dict(weights.leaf_items(self._params(seed)))
         with torch.no_grad():
             change = {n: float(torch.linalg.vector_norm(p - start[n])) for n, p in prog.items()}
         del start
         self.checked = {"losses": losses, "grad_norms": grad_norms, "change_norms": change}
-
-    def reload(self, seed: int):
-        self.load(seed)
 
     def window(self, seed: int, seconds: float, trace: bool = False) -> dict:
         st = self.state
@@ -93,7 +87,7 @@ class Entry:
             was_active = sched.active
             sched.poll(now)
             if sched.active and not was_active:
-                bounds = self._attention_bounds()
+                bounds = self.model.train_attn_bounds(self.m, self.B, self.S)
             losses.append(self.train_step(st, next(self.feed))["loss"])
             steps += 1
             now = time.perf_counter()
@@ -103,19 +97,11 @@ class Entry:
         summary = sched.finish()
         finite = torch.isfinite(torch.stack(losses)).tolist()
         host = {"t_open": t0, "window_s": window_s, "steps": steps, "tokens": steps * self.B * self.S,
-                "window_flops": steps * _counts.train_step_flops(self.m, self.B, self.S)}
+                "window_flops": steps * _counts.train_step_flops(self.model, self.m, self.B, self.S)}
         if bounds:
             host["attn_bounds"] = bounds
         return {"attempted": steps, "failed": finite.count(False), "host": host, "trace": summary,
                 "judged": self.checked}
-
-    def _attention_bounds(self) -> dict:
-        """Bound of one launch of each attention kernel at this step's shape."""
-        _, _, h, kv, d, _, _ = _counts.dims(self.m)
-        B, S = self.B, self.S
-        return {"flash_fwd_kernel": _counts.bound_s(*_counts.k1_cost(h, kv, d, [S] * B, seg=False)),
-                "flash_bwd_dq_kernel": _counts.bound_s(*_counts.k3_cost(B, S, h, kv, d)),
-                "flash_bwd_dkv_kernel": _counts.bound_s(*_counts.k2_cost(B, S, h, kv, d))}
 
     def free(self):
         self.state = None
@@ -127,15 +113,16 @@ class Entry:
         weights and batches; with ``control`` the fp8 reference as well."""
         from perfbench import check
 
-        params0 = weights.make_params(self.m, seed, torch.float32, self.device)
+        params0 = self._params(seed)
         feed = self._feed(seed)
         batches = [next(feed)["tokens"] for _ in range(int(self.mix["checked_steps"]))]
         rows = int(self.mix.get("reference_rows", 2))
-        ref = decoder.train_steps(params0, self.m["rope_theta"], batches, rows)
+        reference = self.cell.reference()
+        ref = reference.train_steps(params0, self.m, batches, rows)
         _common.free_cuda()
         out = {"program": check.training_numbers(judged, ref), "reference": ref, "measured": judged}
         if control:
-            ctl = decoder.train_steps(params0, self.m["rope_theta"], batches, rows, fp8=True)
+            ctl = reference.train_steps(params0, self.m, batches, rows, fp8=True)
             out["control"] = check.training_numbers(ctl, ref)
             out["control_raw"] = ctl
         del params0, batches

@@ -13,6 +13,9 @@ name:
   prefix that has one (``engine.step_ms.rag`` -> ``engine.step_ms.py``).
 - ``limits/<workload>.json``: the limits of the comparison that decides
   ``correct``.
+- ``models/<model_type>.py`` and ``reference/<model_type>.py``: for the
+  configuration's ``model_type``, the port's keywords, the weights' leaves and
+  the counts of that block, and its plain reference (``models/__init__.py``).
 
 A reader is ``read(rec) -> float | None``; ``None`` means it found nothing
 to read, and the metric is left out of the line.
@@ -80,9 +83,28 @@ class Cell:
     end_to_end: list  # manifest entries of the metrics this cell reports
     per_layer: list
     limits: dict
+    root: Path = HERE  # where the files named by type are found
+
+    def _by_type(self, kind: str):
+        mtype = self.config.get("model_type")
+        if not mtype:
+            raise ValueError(f"configuration {self.config_name!r} has no model_type")
+        path = self.root / kind / f"{mtype}.py"
+        if not path.is_file():
+            rel = path.relative_to(self.root.parent).as_posix()
+            raise FileNotFoundError(f"model_type {mtype!r} of configuration {self.config_name!r} has no {rel}: add it")
+        return load_module(path, f"perfbench_{kind}_{mtype}")
+
+    def model(self):
+        """The model type's module (``models/<model_type>.py``)."""
+        return self._by_type("models")
+
+    def reference(self):
+        """The model type's plain reference (``reference/<model_type>.py``)."""
+        return self._by_type("reference")
 
     def model_kwargs(self) -> dict:
-        return model_kwargs(self.config)
+        return self.model().port_kwargs(self.config)
 
 
 def _applies(metric: dict, cell: str, e2e_names=()) -> bool:
@@ -91,40 +113,23 @@ def _applies(metric: dict, cell: str, e2e_names=()) -> bool:
     return "moves" not in metric or metric["moves"] in e2e_names
 
 
-def load_cell(name: str, man: Optional[dict] = None) -> Cell:
+def load_cell(name: str, man: Optional[dict] = None, root: Path = HERE) -> Cell:
+    """The cell ``name`` of the manifest, with the files it names found
+    under ``root`` (the benchmark's directory; configuration files by their
+    path from its parent)."""
     man = man or manifest()
     wl = next((w for w in man["workloads"] if w["name"] == name), None)
     if wl is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     cfg_entry = next(c for c in man["configs"] if c["name"] == wl["config"])
-    config = load_json(REPO / cfg_entry["file"])
-    traffic = load_json(HERE / "traffic" / f"{wl['traffic']}.json")
+    config = load_json(root.parent / cfg_entry["file"])
+    traffic = load_json(root / "traffic" / f"{wl['traffic']}.json")
     e2e = [m for m in man["end_to_end"] if _applies(m, name)]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in man["per_layer"] if _applies(m, name, names)]
-    limits_path = HERE / "limits" / f"{name}.json"
+    limits_path = root / "limits" / f"{name}.json"
     limits = load_json(limits_path) if limits_path.exists() else {}
-    return Cell(name, int(wl["chips"]), wl["config"], config, wl["traffic"], traffic, e2e, per_layer, limits)
-
-
-def model_kwargs(config: dict) -> dict:
-    """The port's TransformerConfig keywords (dtypes as names) for a
-    configuration file written in the published config.json's keys."""
-    hidden, heads = config["hidden_size"], config["num_attention_heads"]
-    if config.get("head_dim", hidden // heads) * heads != hidden:
-        raise ValueError("the port derives head_dim as hidden_size / num_attention_heads")
-    if config.get("tie_word_embeddings"):
-        raise ValueError("the port's model has an untied head")
-    if config.get("hidden_act", "silu") != "silu" or config.get("sliding_window") is not None:
-        raise ValueError("the port's block is SwiGLU with full causal attention")
-    remat = config.get("remat")
-    return dict(
-        vocab_size=config["vocab_size"], d_model=hidden, n_layers=config["num_hidden_layers"],
-        n_heads=heads, n_kv_heads=config["num_key_value_heads"], d_ff=config["intermediate_size"],
-        max_seq_len=config["max_position_embeddings"], rope_theta=float(config["rope_theta"]),
-        dtype=config.get("torch_dtype", "bfloat16"), param_dtype=config.get("param_dtype", "float32"),
-        remat=bool(remat), remat_policy=remat or "full",
-    )
+    return Cell(name, int(wl["chips"]), wl["config"], config, wl["traffic"], traffic, e2e, per_layer, limits, root)
 
 
 def metric_reader(name: str):

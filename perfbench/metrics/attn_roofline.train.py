@@ -1,7 +1,7 @@
 """attn_roofline.train: the attention kernels of training in the traced
 slice, K1 (flash_fwd_kernel, forward and remat's recompute), K3
 (flash_bwd_dq_kernel) and K2 (flash_bwd_dkv_kernel): each launch's bound
-(_counts.k1_cost, k3_cost, k2_cost at the step's shape) summed, over their
+(the model type's train_attn_bounds at the step's shape) summed, over their
 summed device time by name, in %."""
 
 

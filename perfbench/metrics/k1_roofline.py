@@ -1,6 +1,6 @@
 """k1_roofline: kernel K1 (ops/csrc/flash_fwd.cu, symbol flash_fwd_kernel) in
-the traced slice: its launches' bound (_counts.k1_cost on each prefill
-group's real prompt lengths, the larger of operations over the bf16 peak and
+the traced slice: its launches' bound (the model type's k1_bound on each
+prefill group's real prompt lengths, the larger of operations over the bf16 peak and
 bytes over the HBM peak) over its device time by name, in %."""
 SYMBOL = "flash_fwd_kernel"
 

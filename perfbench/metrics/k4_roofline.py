@@ -1,6 +1,6 @@
 """k4_roofline: kernel K4 (ops/csrc/paged_decode.cu, symbol
-paged_decode_kernel) in the traced slice: its launches' bound (_counts.k4_cost
-on the KV each decode step reads at the active slots' lengths) over its
+paged_decode_kernel) in the traced slice: its launches' bound (the model type's
+k4_bound on the KV each decode step reads at the active slots' lengths) over its
 device time by name, in %."""
 SYMBOL = "paged_decode_kernel"
 

@@ -1,12 +1,14 @@
-"""The plain decoder the port is held against: plain PyTorch, float32,
-TF32 off, no kernel, no cache, no batching across sequences.
+"""The plain pieces every reference is built from: plain PyTorch, float32,
+TF32 off, no kernel, no cache, no batching across sequences. A model type's
+reference (``reference/<model_type>.py``) gives its block; the decoder
+around it (embedding, the blocks, a final norm, an untied head), the served
+gaps and the AdamW steps are here.
 
-The block is the Mistral 7B paper's: pre-norm RMSNorm (eps 1e-6, the
-port's), rotary positions on the two halves of each head, grouped-query
-causal attention with an fp32 softmax, SwiGLU, a final norm and an untied
-head. Weights come in the benchmark's tree layout (layers stacked on [L]);
-each layer is cast to float32 only while it runs, so a 7B model fits beside
-the program on one card.
+RMSNorm has the port's eps (1e-6), rotary positions turn the two halves of
+each head, attention is grouped-query and causal with an fp32 softmax.
+Weights come in the benchmark's tree layout (layers stacked on [L]); in
+``served_gaps`` each layer is cast to float32 only while it runs, so a 7B
+model fits beside the program on one card.
 
 ``fp8=True`` computes every matrix product of the weights from operands
 rounded to float8 with one scale per tensor: e4m3 activations and weights
@@ -20,6 +22,8 @@ import contextlib
 import math
 
 import torch
+
+from perfbench.weights import leaf_items
 
 EPS = 1e-6
 
@@ -99,40 +103,33 @@ def attention(q, k, v):
     return torch.einsum("rhqk,rkhd->rqhd", p, v)
 
 
-def layer(x, lp, theta, fp8=False):
-    """One decoder block on x [R, S, D] with this layer's weights ``lp``."""
-    h = rms_norm(x, lp["attn_norm"])
-    q = rope(mm(h, lp["wq"], fp8), theta)
-    k = rope(mm(h, lp["wk"], fp8), theta)
-    v = mm(h, lp["wv"], fp8)
-    o = attention(q, k, v)
-    x = x + mm(o.reshape(*o.shape[:2], -1), lp["wo"].reshape(-1, lp["wo"].shape[-1]), fp8)
-    h = rms_norm(x, lp["ffn_norm"])
-    return x + mm(torch.nn.functional.silu(mm(h, lp["w_gate"], fp8)) * mm(h, lp["w_up"], fp8), lp["w_down"], fp8)
+def n_layers(params: dict) -> int:
+    return next(iter(params["layers"].values())).shape[0]
 
 
 def _layer_f32(params, i):
     return {k: v[i].float() for k, v in params["layers"].items()}
 
 
-def served_gaps(params: dict, theta: float, seqs: list, control: bool = False) -> list:
+def served_gaps(params: dict, block, seqs: list, control: bool = False) -> list:
     """For each (prompt, served tokens) pair, the reference's logits at the
     positions that produced the served tokens, the prompt and the tokens
-    before each as context. Returns per pair {"gap": the widest amount by
-    which a served token's logit lies below the reference's best, "tokens":
-    its count} and, with ``control``, "control_gap": the same for the tokens
-    the fp8 computation ranks first at those positions."""
+    before each as context; ``block(x, lp, fp8)`` is one layer on x [R, S, D]
+    with that layer's weights ``lp``. Returns per pair {"gap": the widest
+    amount by which a served token's logit lies below the reference's best,
+    "tokens": its count} and, with ``control``, "control_gap": the same for
+    the tokens the fp8 computation ranks first at those positions."""
     with torch.no_grad(), exact_fp32():
         dev = params["embed"].device
         ids = [torch.tensor(list(p) + list(s[:-1]), dtype=torch.long, device=dev) for p, s in seqs]
         xs = [params["embed"][t].float()[None] for t in ids]
         xcs = [x.clone() for x in xs] if control else None
-        for i in range(params["layers"]["wq"].shape[0]):
+        for i in range(n_layers(params)):
             lp = _layer_f32(params, i)
             for j in range(len(xs)):
-                xs[j] = layer(xs[j], lp, theta)
+                xs[j] = block(xs[j], lp, False)
                 if control:
-                    xcs[j] = layer(xcs[j], lp, theta, fp8=True)
+                    xcs[j] = block(xcs[j], lp, True)
             del lp
         fnorm, head = params["final_norm"].float(), params["lm_head"].float()
         out = []
@@ -149,38 +146,33 @@ def served_gaps(params: dict, theta: float, seqs: list, control: bool = False) -
         return out
 
 
-def leaf_names(params: dict) -> list:
-    return ["embed", *(f"layers.{k}" for k in params["layers"]), "final_norm", "lm_head"]
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def _leaves(params: dict) -> list:
-    return [params["embed"], *params["layers"].values(), params["final_norm"], params["lm_head"]]
-
-
-def _loss_sum(params, tokens, theta, fp8):
-    """Summed next-token NLL of tokens [R, S + 1] (inputs all but the last)."""
+def nll_sum(params, tokens, block, fp8):
+    """Summed next-token NLL of tokens [R, S + 1] (inputs all but the last)
+    through the decoder of ``block``."""
     x = params["embed"][tokens[:, :-1]]
-    for i in range(params["layers"]["wq"].shape[0]):
-        x = layer(x, {k: v[i] for k, v in params["layers"].items()}, theta, fp8)
+    for i in range(n_layers(params)):
+        x = block(x, {k: v[i] for k, v in params["layers"].items()}, fp8)
     logits = mm(rms_norm(x, params["final_norm"]), params["lm_head"], fp8)
     tgt = tokens[:, 1:]
     return (torch.logsumexp(logits, dim=-1) - logits.gather(-1, tgt[..., None])[..., 0]).sum()
 
 
-def train_steps(params0: dict, theta: float, batches: list, rows: int, fp8: bool = False,
+def train_steps(params0: dict, loss_sum, batches: list, rows: int, fp8: bool = False,
                 lr: float = 3e-4, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.01) -> dict:
     """Plain AdamW training from ``params0`` (float32 copies are made) over
-    ``batches`` ([B, S + 1] token ids each), the mean NLL over all B x S
-    positions, each batch's gradient summed over blocks of ``rows`` rows.
-    Returns {"losses": per step, "grad_norms": per leaf, of the first
-    step's gradient, "change_norms": per leaf, of the parameters' change
-    over all steps} (leaf names as ``leaf_names``)."""
+    ``batches`` ([B, S + 1] token ids each): the loss is ``loss_sum(params,
+    tokens, fp8)`` of each block of ``rows`` rows over B x S, each batch's
+    gradient summed over the blocks. Returns {"losses": per step,
+    "grad_norms": per leaf, of the first step's gradient, "change_norms": per
+    leaf, of the parameters' change over all steps} (leaves by dotted path,
+    as ``weights.leaf_items`` names them)."""
     with exact_fp32():
-        p = {"embed": params0["embed"].float().clone(),
-             "layers": {k: v.float().clone() for k, v in params0["layers"].items()},
-             "final_norm": params0["final_norm"].float().clone(),
-             "lm_head": params0["lm_head"].float().clone()}
-        leaves = _leaves(p)
+        p = _tree_map(lambda t: t.float().clone(), params0)
+        names, leaves = zip(*leaf_items(p))
         start = [t.clone() for t in leaves]
         for t in leaves:
             t.requires_grad_(True)
@@ -193,7 +185,7 @@ def train_steps(params0: dict, theta: float, batches: list, rows: int, fp8: bool
                 t.grad = None
             total = 0.0
             for r in range(0, B, rows):
-                s = _loss_sum(p, tokens[r:r + rows], theta, fp8)
+                s = loss_sum(p, tokens[r:r + rows], fp8)
                 (s / (B * S)).backward()
                 total += float(s.detach())
             losses.append(total / (B * S))
@@ -210,6 +202,5 @@ def train_steps(params0: dict, theta: float, batches: list, rows: int, fp8: bool
                     t.addcdiv_(a, denom, value=-lr / (1 - b1 ** step))
         with torch.no_grad():
             change = [float(torch.linalg.vector_norm(t - s)) for t, s in zip(leaves, start)]
-        names = leaf_names(p)
         return {"losses": losses, "grad_norms": dict(zip(names, grad_norms)),
                 "change_norms": dict(zip(names, change))}

@@ -15,9 +15,10 @@ from perfbench import check, harness
 from perfbench.run import REPO
 
 SERVING = ("serve.mistral7b.rag", "serve.mistral7b.offline")
+TRAINING = ("train.lm250m.s2048", "train.mistral7b-pp8.s4096")
 
 
-@pytest.mark.parametrize("workload", SERVING + ("train.lm250m.s2048",))
+@pytest.mark.parametrize("workload", SERVING + TRAINING)
 def test_control_reads_far_above_the_program_tiny(tiny, workload):
     """At a tiny size on the CPU the limits (set at the cells' sizes) do not
     apply to the control; what holds is that the program passes them and
@@ -41,7 +42,7 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", SERVING + ("train.lm250m.s2048",))
+@pytest.mark.parametrize("workload", SERVING + TRAINING)
 def test_control_fails_at_the_cells_own_size_on_three_seeds(workload):
     _card()
     cell = harness.load_cell(workload)

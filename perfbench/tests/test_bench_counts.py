@@ -1,5 +1,5 @@
 """The yardstick's arithmetic against hand-worked cases and PERF.md's
-kernel-table bounds."""
+kernel-table bounds, through the cells' model type (``models/mistral.py``)."""
 import math
 
 import pytest
@@ -8,44 +8,61 @@ from perfbench import harness
 from perfbench import trace as tracing
 from perfbench.metrics import _counts as c
 
-M250 = harness.load_cell("train.lm250m.s2048").model_kwargs()
+CELL = harness.load_cell("train.lm250m.s2048")
+MODEL = CELL.model()
+M250 = CELL.model_kwargs()
 M7B = harness.load_cell("serve.mistral7b.rag").model_kwargs()
+MPP8 = harness.load_cell("train.mistral7b-pp8.s4096").model_kwargs()
 
 
 def test_matmul_weights_of_the_two_models():
     # 250M: per layer 1024*1024*2 (wq, wo) + 1024*256*2 (wk, wv) + 3*1024*4096
-    assert c.layer_matmul_params(M250) == 15_204_352
-    assert 12 * c.layer_matmul_params(M250) + c.head_params(M250) == 215_220_224
+    assert MODEL.layer_matmul_params(M250) == 15_204_352
+    assert MODEL.matmul_params(M250) + MODEL.head_params(M250) == 215_220_224
     # Mistral-7B: 4096^2 * 2 + 4096*1024*2 + 3*4096*14336, 32 layers, head 4096*32768
-    assert c.layer_matmul_params(M7B) == 218_103_808
-    assert 32 * c.layer_matmul_params(M7B) + c.head_params(M7B) == 7_113_539_584
+    assert MODEL.layer_matmul_params(M7B) == 218_103_808
+    assert MODEL.matmul_params(M7B) + MODEL.head_params(M7B) == 7_113_539_584
+    # One stage of eight: 4 of its layers, with the head
+    assert MODEL.matmul_params(MPP8) + MODEL.head_params(MPP8) == 4 * 218_103_808 + 4096 * 32768
+
+
+def test_parameter_count_of_the_pipeline_stage():
+    n = sum(math.prod(shape) for _, shape, _ in MODEL.leaves(MPP8))
+    # 4 layers of 218,103,808 and 2 norms of 4096, embedding and head of 4096 x 32768, the final norm
+    assert n == 4 * (218_103_808 + 2 * 4096) + 2 * 4096 * 32768 + 4096 == 1_140_887_552
 
 
 def test_train_step_flops_per_token():
     # 6 * 215.22M + 3 * 4 * 1024 * (2048 * 2049 / 2) * 12 / 2048 per token
-    per_token = c.train_step_flops(M250, 16, 2048) / (16 * 2048)
+    per_token = c.train_step_flops(MODEL, M250, 16, 2048) / (16 * 2048)
     assert per_token == pytest.approx(6 * 215_220_224 + 3 * 4 * 1024 * 2049 / 2 * 12, rel=1e-12)
 
 
 def test_prefill_and_decode_flops_hand_worked():
     m = {"n_layers": 1, "d_model": 4, "n_heads": 2, "n_kv_heads": 1, "d_ff": 8, "vocab_size": 10}
     layer = 4 * 4 + 2 * 4 * 2 + 4 * 4 + 3 * 4 * 8  # 144
-    assert c.layer_matmul_params(m) == layer
+    assert MODEL.layer_matmul_params(m) == layer
     # two tokens: 2 * 144 * 2 + head once (2 * 40) + attention 4 * 4 * 3 pairs
-    assert c.prefill_flops(m, [2]) == 2 * layer * 2 + 2 * 40 + 4 * 4 * 3
-    assert c.decode_token_flops(m, 5) == 2 * (layer + 40) + 4 * 4 * 5
+    assert c.prefill_flops(MODEL, m, [2]) == 2 * layer * 2 + 2 * 40 + 4 * 4 * 3
+    assert c.decode_token_flops(MODEL, m, 5) == 2 * (layer + 40) + 4 * 4 * 5
 
 
 def test_kernel_bounds_match_the_kernel_table():
     # PERF.md's kernel table, D 64 training shape (B 16, S 2048, 16/4 heads):
     # K1 0.1390 ms, K3 0.2086 ms, K2 0.2781 ms, all bound by operations.
-    assert c.bound_s(*c.k1_cost(16, 4, 64, [2048] * 16, seg=False)) * 1e3 == pytest.approx(0.1390, abs=5e-5)
-    assert c.bound_s(*c.k3_cost(16, 2048, 16, 4, 64)) * 1e3 == pytest.approx(0.2086, abs=5e-5)
-    assert c.bound_s(*c.k2_cost(16, 2048, 16, 4, 64)) * 1e3 == pytest.approx(0.2781, abs=5e-5)
+    bounds = MODEL.train_attn_bounds(M250, 16, 2048)
+    assert bounds["flash_fwd_kernel"] * 1e3 == pytest.approx(0.1390, abs=5e-5)
+    assert bounds["flash_bwd_dq_kernel"] * 1e3 == pytest.approx(0.2086, abs=5e-5)
+    assert bounds["flash_bwd_dkv_kernel"] * 1e3 == pytest.approx(0.2781, abs=5e-5)
+    # D 128 (8 x 4096, 32/8 heads): K1 1.1120 ms, K3 1.6680, K2 2.2240
+    bounds = MODEL.train_attn_bounds(MPP8, 8, 4096)
+    assert bounds["flash_fwd_kernel"] * 1e3 == pytest.approx(1.1120, abs=5e-5)
+    assert bounds["flash_bwd_dq_kernel"] * 1e3 == pytest.approx(1.6680, abs=5e-5)
+    assert bounds["flash_bwd_dkv_kernel"] * 1e3 == pytest.approx(2.2240, abs=5e-5)
 
 
 def test_k4_cost_hand_worked():
-    flops, nbytes = c.k4_cost(2, 1, 4, [3, 5], 4)
+    flops, nbytes = MODEL.k4_cost(2, 1, 4, [3, 5], 4)
     assert flops == 4 * 2 * 4 * 8
     assert nbytes == 2 * 8 * 1 * 4 * 2 + 2 * 2 * 2 * 4 * 2 + 4 * 2 + 4 * 3
 

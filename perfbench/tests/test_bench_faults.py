@@ -12,7 +12,8 @@ from perfbench.run import run_cell
 CASES = [("serve.mistral7b.rag", None), ("serve.mistral7b.rag", "altered_token"),
          ("serve.mistral7b.offline", None), ("serve.mistral7b.offline", "altered_token"),
          ("train.lm250m.s2048", None), ("train.lm250m.s2048", "unchanged_state"),
-         ("train.lm250m.s2048", "half_batch")]
+         ("train.lm250m.s2048", "half_batch"), ("train.mistral7b-pp8.s4096", None),
+         ("train.mistral7b-pp8.s4096", "unchanged_state"), ("train.mistral7b-pp8.s4096", "half_batch")]
 
 
 @pytest.mark.parametrize("workload,fault", CASES)

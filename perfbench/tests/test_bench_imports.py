@@ -19,7 +19,7 @@ def _loaded(code):
 
 
 def test_reference_imports_neither_jax_nor_either_package():
-    tops = _loaded("import perfbench.reference.decoder")
+    tops = _loaded("import perfbench.reference.mistral, perfbench.reference.plain")
     assert not {"jax", "jaxlib", "flax", "ray_tpu", "ray_tpu_torch"} & set(tops)
 
 
@@ -28,6 +28,7 @@ def test_harness_entries_and_readers_import_no_jax_and_no_ray_tpu():
             "from perfbench import harness; "
             "[__import__('perfbench.entries.' + e, fromlist=['Entry']) for e in "
             "('serve_stream', 'engine_backlog', 'train_step')]; "
+            "[harness.load_cell(w['name']).model() for w in harness.manifest()['workloads']]; "
             "[harness.metric_reader(m['name']) for m in harness.manifest()['per_layer'] + "
             "harness.manifest()['end_to_end']]; "
             "import ray_tpu_torch.llm.deployment, ray_tpu_torch.llm.engine, ray_tpu_torch.models.transformer")

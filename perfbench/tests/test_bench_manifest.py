@@ -104,6 +104,7 @@ def test_harness_finds_every_file_by_name():
         for m in cell.end_to_end + cell.per_layer:
             assert callable(harness.metric_reader(m["name"]))
         cell.model_kwargs()
+        assert callable(cell.reference().served_gaps) and callable(cell.reference().train_steps)
 
 
 def test_run_seconds_fits_a_full_check_of_24_cells():
