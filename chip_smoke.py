@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (``ray_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--only mellum2]
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA,
@@ -54,6 +54,24 @@ Phases, in order; any failure exits non-zero:
      on the same inputs (B 2, S 2048, packed segments; the tolerances of
      phases 3 and 5), then timed at the training shape beside the plain
      forward + backward and SDPA's forward + backward.
+  5c. mellum2-kernels (run right after phase 2, on random streams of its
+     own; `--only mellum2` runs phases 1, 2 and 5c alone): the kernels
+     Mellum2-12B-A2.5B added, at its serving cell's shapes. K6 (routed
+     experts: align, grouped gate-up with SwiGLU, down, combine) at D 2304,
+     F 896, 64 experts top 8, decode T 64 and prefill T 4096, against
+     moe_experts_reference on the same inputs: max |y - y_ref| <= 2e-2 *
+     max |y_ref| (the intermediate is rounded to bf16 in both), and a K6
+     that gives 8 tokens a wrong expert must read above that; counts
+     equal, two launches bitwise equal. K1's window instance (window 1024)
+     at B 2 x S 4096, H 32, KV 4, D 128, and K4's at 64 sequences of
+     0..8832 tokens (0, 1, 1024, 1025 and 8832 among them), page 128,
+     against their plain versions with the window, at phases 3's and 4's
+     limits, which the same kernels without the window must exceed. Each
+     timed beside its plain version, its library yardstick
+     (torch._grouped_mm's gate-up, silu * up and down on sorted rows;
+     SDPA under the band mask; none for K4) and, for K1 and K4, the same
+     kernel without the window, with its bound from the window's pairs
+     (K1), keys (K4) or the touched experts' weights and the rows (K6).
   6. the engine end to end: the 250M-parameter GQA model (vocab 32000,
      d_model 1024, 12 layers, 16 heads, 4 KV heads, d_ff 4096, max_seq 2048)
      with seeded random weights, paged KV (page 128, 32 slots); warmup, then
@@ -453,7 +471,8 @@ Phases, in order; any failure exits non-zero:
      (each kernel's D-64 numbers, its "d128" and "d256" numbers with their
      launches by path and ptxas report, its launches by path, ptxas's
      registers and spills per instance, null where this run did not
-     compile it) and, last, {"ok": true, "device": ...}. 6e, 6f and 6g's
+     compile it; then 5c's rows: moe_gemm, flash_fwd_window and
+     paged_decode_window) and, last, {"ok": true, "device": ...}. 6e, 6f and 6g's
      device windows are under "device_window" in their phases' lines.
 
 ``--profile DIR`` also traces the paged engine with torch.profiler (the
@@ -593,6 +612,17 @@ SHAPES = {
 # sequences, page 128, tables of max_seq / 128 pages).
 K4_BIG = {128: dict(h=H7, kv=KV7, lengths=(M_PROMPT + 1, M_PROMPT + M_TOKENS), ppseq=4096 // 128),
           256: dict(h=H2, kv=KV2, lengths=(G_PROMPT + 1, G_PROMPT + G_TOKENS), ppseq=8192 // 128)}
+# Phase 5c: Mellum2-12B-A2.5B's serving shapes (huggingface.co/JetBrains/
+# Mellum2-12B-A2.5B-Instruct, config.json: hidden 2304, 32 heads, 4 KV
+# heads, head_dim 128, 64 experts of width 896, top 8, sliding window 1024).
+# K6 at decode (64 slots) and prefill (one 4096-token prompt); K1's window
+# instance at a prefill group of 2 x 4096 (prefill: B, S, window); K4's at
+# 64 sequences of up to 8832 tokens, the cell's max_seq, most of them
+# decode_min or more (decode: B, max_seq, window). MELLUM_WRONG tokens get
+# a wrong expert in K6's negative check.
+MELLUM = dict(d=2304, f=896, experts=64, top_k=8, h=32, kv=4, head_dim=128, decode=(64, 8832, 1024),
+              decode_min=2048, prefill=(2, 4096, 1024), prefill_tokens=4096)
+MELLUM_WRONG = 8
 
 
 def log(*a):
@@ -675,6 +705,15 @@ def phase_device():
     return card
 
 
+def _instance_key(num, flag):
+    """ptxas report key of a template instance: the head dim or group ("128"),
+    with "w" for K1's and K4's window instances ("128w", "8w"); K6's GEMM
+    by its bool, "gate_up" or "down"; "-" for a kernel without template."""
+    if num:
+        return num + ("w" if flag == "1" else "")
+    return {"1": "gate_up", "0": "down"}.get(flag, "-")
+
+
 def phase_build():
     """Builds every kernel; prints ptxas's registers and spills for each
     instance this run compiled and returns them: {kernel: {head dim or "-":
@@ -692,10 +731,12 @@ def phase_build():
             log(f"  {name}: already built, not compiled in this run: no ptxas report")
             continue
         for line in _build.log_path(name).read_text().splitlines():
-            kernel = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line) if "entry function" in line else None
+            kernel = (re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?(?:Lb([01])E)?E)?", line)
+                      if "entry function" in line else None)
             if kernel:
-                cur = report.setdefault(kernel.group(1), {}).setdefault(kernel.group(2) or "-", {})
-                log(f"  {name}: {kernel.group(1)}" + (f"<{kernel.group(2)}>" if kernel.group(2) else ""))
+                key = _instance_key(*kernel.group(2, 3))
+                cur = report.setdefault(kernel.group(1), {}).setdefault(key, {})
+                log(f"  {name}: {kernel.group(1)}" + (f"<{key}>" if key != "-" else ""))
             elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
                 if cur is not None:
@@ -1182,6 +1223,230 @@ def phase_splash(dev, rng, k1_train, k3, k2):
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by="operations",
                 plain_covers="mha_reference + flash_bwd_reference on the folded q",
                 library_covers="scaled_dot_product_attention forward + backward (scale 1.0) in one call each")
+
+
+def _k6_wrong_err(x, w, ids, wg, wu, wd, want):
+    """The largest error of a K6 that routes MELLUM_WRONG tokens' first
+    expert to the next one: what a wrong kernel would read."""
+    from ray_tpu_torch.ops import moe
+
+    bad = ids.clone()
+    bad[:MELLUM_WRONG, 0] = (bad[:MELLUM_WRONG, 0] + 1) % wg.shape[0]
+    wrong, _ = moe.moe_experts_reference(x, w, bad, wg, wu, wd)
+    return (wrong.float() - want.float()).abs().max().item()
+
+
+def _grouped_mm_ms(x, ids, counts, wg, wu, wd):
+    """torch._grouped_mm's gate-up, silu * up and down on the rows sorted by
+    expert (no routing, sort or combine), device time; None where this torch
+    has no grouped GEMM or refuses the shapes (the reason is printed)."""
+    import torch
+
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is None:
+        log("  torch._grouped_mm: not in this torch")
+        return None
+    k = ids.shape[1]
+    rows = x[torch.argsort(ids.reshape(-1).long(), stable=True) // k].contiguous()
+    offs = counts.cumsum(0).to(torch.int32)
+    # Column-major weights, the layout the grouped GEMM's second operand takes.
+    wgc, wuc, wdc = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (wg, wu, wd))
+
+    def run():
+        h = torch.nn.functional.silu(gm(rows, wgc, offs=offs)) * gm(rows, wuc, offs=offs)
+        return gm(h, wdc, offs=offs)
+
+    try:
+        return device_ms(run, iters=10)
+    except (RuntimeError, NotImplementedError) as e:  # a refusal is the finding
+        log(f"  torch._grouped_mm refused: {type(e).__name__}: {e}")
+        return None
+
+
+def _mellum_k6(dev, g, T):
+    """K6 at T tokens of the cell's widths against its plain version, timed
+    beside it and the library's grouped GEMM."""
+    import torch
+
+    from ray_tpu_torch.ops import moe
+
+    D, F, E, k = MELLUM["d"], MELLUM["f"], MELLUM["experts"], MELLUM["top_k"]
+    x = torch.randn(T, D, device=dev, generator=g).bfloat16()
+    router = (torch.randn(D, E, device=dev, generator=g) / math.sqrt(D)).bfloat16()
+    wg, wu = ((torch.randn(E, D, F, device=dev, generator=g) / math.sqrt(D)).bfloat16() for _ in range(2))
+    wd = (torch.randn(E, F, D, device=dev, generator=g) / math.sqrt(F)).bfloat16()
+    w, ids = moe.route(x, router, k)
+    y, counts = moe.moe_experts(x, w, ids, wg, wu, wd)
+    torch.cuda.synchronize()
+    want, want_counts = moe.moe_experts_reference(x, w, ids, wg, wu, wd)
+    tol = 2e-2 * want.float().abs().max().item()
+    err = (y.float() - want.float()).abs().max().item()
+    wrong = _k6_wrong_err(x, w, ids, wg, wu, wd, want)
+    same_counts = torch.equal(counts.long(), want_counts)
+    again = torch.equal(y, moe.moe_experts(x, w, ids, wg, wu, wd)[0])
+    log(f"K6 T={T} (rows {T * k}, D {D}, F {F}, {E} experts top {k}): max|y-ref| {err:.3e} (limit {tol:.3e}; "
+        f"a wrong expert for {MELLUM_WRONG} tokens reads {wrong:.3e})  counts equal {same_counts}  "
+        f"two launches bitwise equal {again}")
+    if not (bool(torch.isfinite(y).all()) and err <= tol < wrong and same_counts and again):
+        raise AssertionError(f"K6 disagrees with its plain version at T={T}")
+    ms = device_ms(lambda: moe.moe_experts(x, w, ids, wg, wu, wd), iters=10)
+    plain_ms = time_ms(lambda: moe.moe_experts_reference(x, w, ids, wg, wu, wd), iters=3, warmup=1)
+    library_ms = _grouped_mm_ms(x, ids, counts, wg, wu, wd)
+    rows, touched = T * k, int((counts > 0).sum())
+    flops = 2 * rows * 3 * D * F
+    bound_ms, bound_by = bound(flops, touched * 3 * D * F * 2 + 2 * rows * D * 2)
+    log(f"K6 T={T}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {ms / bound_ms:.2f}x bound)  "
+        f"plain {plain_ms:.4f} ms  torch._grouped_mm {library_ms if library_ms is None else f'{library_ms:.4f}'} ms "
+        f"(gate-up, silu * up, down on sorted rows)  bound {bound_ms:.4f} ms ({bound_by}; {touched} experts hit)")
+    return dict(tokens=T, rows=rows, max_abs_err=err, limit=tol, wrong_err=wrong, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _mellum_k1(dev, g):
+    """K1's window instance at the cell's prefill shape against mha_reference
+    with the same window, timed beside K1 without a window, the plain
+    version and SDPA under the window's mask."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as att
+
+    B, S, W = MELLUM["prefill"]
+    h, kv, d = MELLUM["h"], MELLUM["kv"], MELLUM["head_dim"]
+    q = torch.randn(B, S, h, d, device=dev, generator=g).bfloat16()
+    k, v = (torch.randn(B, S, kv, d, device=dev, generator=g).bfloat16() for _ in range(2))
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    o, lse = att.flash_fwd(q, k, v, segment_ids=seg, causal=True, window=W)
+    torch.cuda.synchronize()
+    err = lse_err = wrong = 0.0
+    for b in range(B):
+        o_ref, lse_ref = att.mha_reference(q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(),
+                                           segment_ids=seg[b:b + 1], window=W, return_lse=True)
+        err = max(err, (o[b:b + 1].float() - o_ref).abs().max().item())
+        lse_err = max(lse_err, (lse.view(B, h, S)[b] - lse_ref.view(h, S)).abs().max().item())
+        # What a kernel that drops the window would read.
+        o_full = att.mha_reference(q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(), segment_ids=seg[b:b + 1])
+        wrong = max(wrong, (o_full - o_ref).abs().max().item())
+        del o_ref, lse_ref, o_full
+    log(f"K1 window {W} B={B} S={S} H={h} KV={kv} D={d}: max|o-ref| {err:.3e}  max|lse-ref| {lse_err:.3e} "
+        f"(limits 2e-2, 1e-3; no window reads {wrong:.3e})")
+    if not (bool(torch.isfinite(o).all()) and err <= 2e-2 < wrong and lse_err <= 1e-3):
+        raise AssertionError(f"K1's window instance disagrees with its plain version at B={B} S={S} window {W}")
+    ms = device_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True, window=W), iters=10)
+    full_ms = device_ms(lambda: att.flash_fwd(q, k, v, segment_ids=seg, causal=True), iters=10)
+    plain_ms = time_ms(lambda: [att.mha_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1], segment_ids=seg[b:b + 1],
+                                                  window=W) for b in range(B)], iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(S, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True), iters=10)
+    pairs = B * sum(min(n + 1, W) for n in range(S))
+    flops = 4 * d * h * pairs
+    bound_ms, bound_by = bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * h * S + 4 * B * S)
+    log(f"K1 window {W} at B={B} S={S}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{ms / bound_ms:.2f}x bound)  without the window {full_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"sdpa (band mask) {library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=[B, S, h, kv, d], window=W, max_abs_err=err, wrong_err=wrong, ms=ms, no_window_ms=full_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _mellum_k4(dev, rng):
+    """K4's window instance at the cell's decode shape against
+    paged_attention_reference with the same window, timed (8 pool copies
+    rotating) beside K4 without a window and the plain version."""
+    import functools
+
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    B, max_seq, W = MELLUM["decode"]
+    h, kv, d = MELLUM["h"], MELLUM["kv"], MELLUM["head_dim"]
+    ppseq = max_seq // PAGE
+    lengths = [int(n) for n in rng.integers(MELLUM["decode_min"], max_seq + 1, B)]
+    lengths[:5] = [0, 1, W, W + 1, max_seq]
+    err = wrong = 0.0
+    for c in range(2):
+        case = _paged_case(dev, rng, lengths, PAGE, ppseq, h, kv, d)
+        o = pa.paged_decode(*case, window=W)
+        torch.cuda.synchronize()
+        f32 = [t.float() if t.is_floating_point() else t for t in case]
+        o_ref = pa.paged_attention_reference(*f32, window=W)
+        err = max(err, (o.float() - o_ref).abs().max().item())
+        wrong = max(wrong, (pa.paged_attention_reference(*f32) - o_ref).abs().max().item())
+        same = torch.equal(o, pa.paged_decode(*case, window=W))
+        reset = not pa._COUNTERS[o.device].any().item()
+        if not (same and reset):
+            raise AssertionError("K4's window instance is not deterministic or left a ticket counter set")
+        del case, f32, o_ref
+    log(f"K4 window {W} B={B} H={h} KV={kv} D={d} ps={PAGE} lengths 0..{max_seq}: max|o-ref| {err:.3e} "
+        f"(limit 2e-2; no window reads {wrong:.3e})  two launches bitwise equal, counters at 0")
+    if not (err <= 2e-2 < wrong):
+        raise AssertionError(f"K4's window instance disagrees with its plain version at B={B} window {W}")
+    cases = [_paged_case(dev, rng, lengths, PAGE, ppseq, h, kv, d) for _ in range(8)]
+    it = iter(range(1 << 30))
+
+    def run(fn):
+        return lambda: fn(*cases[next(it) % len(cases)])
+
+    ms = device_ms(run(functools.partial(pa.paged_decode, window=W)), iters=40)
+    full_ms = device_ms(run(pa.paged_decode), iters=40)
+    plain_ms = time_ms(run(functools.partial(pa.paged_attention_reference, window=W)), iters=5, warmup=1)
+    seen = sum(min(n, W) for n in lengths)
+    pages = sum((n - 1) // PAGE - max(0, n - W) // PAGE + 1 for n in lengths if n)
+    nbytes = 2 * seen * kv * d * 2 + 2 * B * h * d * 2 + 4 * B + 4 * pages
+    bound_ms, bound_by = bound(4 * h * d * seen, nbytes)
+    log(f"K4 window {W} at B={B} lengths {MELLUM['decode_min']}..{max_seq}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+        f"{ms / bound_ms:.2f}x bound)  without the window {full_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    del cases
+    return dict(shape=[B, h, kv, d, PAGE, ppseq], window=W, max_abs_err=err, wrong_err=wrong, ms=ms,
+                no_window_ms=full_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_mellum(dev):
+    """Phase 5c: the kernels Mellum2 added at its serving cell's shapes: K6
+    at decode and prefill, K1's and K4's window instances; each held against
+    its plain version and against what a wrong kernel would read, then timed.
+    Its own random streams, so later phases draw what they drew before.
+    Returns (K6's, K1 window's, K4 window's rows, launches counted from 0)."""
+    import torch
+
+    from ray_tpu_torch.ops import attention, moe, paged_attention
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    rng = np.random.default_rng(24)
+    attention.LAUNCHES = paged_attention.LAUNCHES = moe.LAUNCHES = 0
+    with torch.random.fork_rng(devices=[dev]):  # _paged_case draws from torch's own stream
+        k6 = {name: _mellum_k6(dev, g, T) for name, T in (("decode", MELLUM["decode"][0]),
+                                                           ("prefill", MELLUM["prefill_tokens"]))}
+        torch.cuda.empty_cache()
+        k1 = _mellum_k1(dev, g)
+        torch.cuda.empty_cache()
+        k4 = _mellum_k4(dev, rng)
+        torch.cuda.empty_cache()
+    launches = {"moe_gemm": moe.LAUNCHES, "flash_fwd": attention.LAUNCHES, "paged_decode": paged_attention.LAUNCHES}
+    log(f"mellum2 kernels: launches counted from 0: {launches}")
+    return k6, k1, k4, launches
+
+
+def _mellum_rows(ptxas, k6, k1, k4, launches):
+    """The kernels line's rows of phase 5c: K6 (its decode shape's numbers,
+    its prefill shape's under "prefill"), K1's and K4's window instances.
+    ``launches``: the wrappers' launches in the phase, both instances of K1
+    and K4 (the window ones and the plain ones they are timed beside)."""
+    def path(name):
+        return dict(launches=launches[name], launches_by_path={"mellum2_kernels": launches[name]})
+
+    k6_ptxas = {k: ptxas[k] for k in ("moe_align_kernel", "moe_gemm_kernel", "moe_combine_kernel") if k in ptxas}
+    return [
+        dict(name="moe_gemm", route="cuda", source="ray_tpu_torch/ops/csrc/moe_gemm.cu",
+             replaces=None, **path("moe_gemm"), ptxas=k6_ptxas or None, **k6["decode"], prefill=k6["prefill"]),
+        dict(name="flash_fwd_window", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces=None, **path("flash_fwd"), ptxas=ptxas.get("flash_fwd_kernel", {}).get("128w"), **k1),
+        dict(name="paged_decode_window", route="cuda", source="ray_tpu_torch/ops/csrc/paged_decode.cu",
+             replaces=None, **path("paged_decode"), ptxas=ptxas.get("paged_decode_kernel", {}).get("8w"), **k4),
+    ]
 
 
 def _finished(done, n, vocab, max_tokens=None):
@@ -4141,6 +4406,7 @@ KERNEL_KINDS = (
     ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K2 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K4 paged_decode", ("paged_decode_kernel",)),
+    ("K6 moe", ("moe_align_kernel", "moe_gemm_kernel", "moe_combine_kernel")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
     ("optimizer", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel",)),
@@ -5553,6 +5819,8 @@ def _pid_alive(pid):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace the paged engine's steps and a training step into DIR")
+    ap.add_argument("--only", choices=("mellum2",),
+                    help="run phases 1, 2 and 5c alone and print their kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -5583,6 +5851,14 @@ def _run(args, dev, rng):
     t_start = time.perf_counter()
     card = phase_device()
     ptxas = phase_build()
+    # Phase 5c draws from its own random streams; it runs first so that
+    # --only mellum2 is a prefix of the whole run.
+    mellum = _mellum_rows(ptxas, *phase_mellum(dev))
+    if args.only == "mellum2":
+        print(json.dumps({"kernels": mellum}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                  "count": torch.cuda.device_count()}}))
+        return 0
     # Every D-64 phase first, in the order and on the random streams of
     # earlier versions of this script; then the D-128 and D-256 kernel phases.
     timed = {}
@@ -5660,6 +5936,7 @@ def _run(args, dev, rng):
         dict(name="splash", route="onto K1-K3", source="ray_tpu_torch/ops/splash.py",
              replaces="ray_tpu/ops/splash.py:33", launches=sum(s_launches.values()),
              launches_by_kernel=s_launches, **splash),
+        *mellum,
     ]
     log(json.dumps({"engine": stats}))
     log(json.dumps({"engine_prefix": prefix}))

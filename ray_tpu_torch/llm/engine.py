@@ -62,9 +62,23 @@ keeps advancing inside a block) are clamped explicitly here.
   order (psum); the embedding is a masked lookup per vocab shard plus a
   psum, and the logits are gathered over the vocabulary for the sampler.
   Slots may share one card: that checks the sharded path, not a speed-up.
+
+- Routed experts (``cfg.n_experts``, one device): each layer's FFN routes
+  its tokens (``ops.moe.route``: the router's product and softmax in fp32,
+  the top k renormalised)
+  and runs them through kernel K6 (``ops.moe.moe_experts``), which sorts the
+  rows by expert on the device; nothing reads the routing back, so the
+  decode graphs capture it. A device-side [L, E] count of the rows each
+  expert received grows inside every prefill and decode block
+  (``expert_load`` reads it). Tensor parallelism with experts is refused.
+- Per-layer attention (``cfg.layer_types``): a sliding layer attends to its
+  last ``sliding_window`` keys in prefill (K1's window instance), decode
+  (K4's), the tail prefill's and the dense decode's masks; each layer
+  rotates with its own RoPE (``cfg.layer_rope``: YaRN on the full layers).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -93,12 +107,16 @@ from ray_tpu_torch.models.transformer import (
     rms_norm,
     rope,
     tree_from_leaves,
+    yarn_inv_freq,
 )
+from ray_tpu_torch.ops import moe as _moe
 from ray_tpu_torch.ops import paged_attention as _k4
-from ray_tpu_torch.ops.attention import check_head_dim, flash_attention
+from ray_tpu_torch.ops.attention import WINDOW_HEAD_DIM, check_head_dim, flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.parallel._shard_map import per_slot as _per_slot
 from ray_tpu_torch.util import tracing as _tracing
+
+_NO_PHASE = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -176,16 +194,19 @@ class _Slot:
 @dataclasses.dataclass
 class _DecodeGraph:
     """One captured paged decode block: the graph, its static token output
-    [n, B] (rewritten by each replay), and the K4 launches it holds."""
+    [n, B] (rewritten by each replay), and the K4 and K6 (grouped expert
+    GEMM) launches it holds."""
     graph: object  # torch.cuda.CUDAGraph
     toks: torch.Tensor
     k4_launches: int
+    moe_launches: int
 
 
-def _dense_attend(q, k_new, v_new, ck, cv, lengths):
+def _dense_attend(q, k_new, v_new, ck, cv, lengths, window=0):
     """Dense-layout one-token attention of one slot: writes k/v [B,1,KV,Hd]
     at each row's length into its [B, S, KV, Hd] cache slice (in place),
-    then einsum attention over the valid prefix -> o [B, 1, H, Hd]."""
+    then einsum attention over the valid prefix (its last ``window`` keys
+    when ``window`` > 0) -> o [B, 1, H, Hd]."""
     dt = q.dtype
     B, H, Hd = q.shape[0], q.shape[2], q.shape[3]
     S, KV = ck.shape[1], ck.shape[2]
@@ -195,8 +216,11 @@ def _dense_attend(q, k_new, v_new, ck, cv, lengths):
     cv[rows, at] = v_new[:, 0]
     qg = q[:, 0].reshape(B, KV, H // KV, Hd)
     scores = torch.einsum("bkgh,bskh->bkgs", qg, ck).float() / math.sqrt(Hd)
-    valid = (torch.arange(S, device=q.device)[None, :] <= lengths[:, None])[:, None, None, :]
-    scores = scores.masked_fill(~valid, -1e30)
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = pos <= lengths[:, None]
+    if window:
+        valid = valid & (pos > lengths[:, None] - window)
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
     p = torch.softmax(scores, dim=-1).to(dt)
     return torch.einsum("bkgs,bskh->bkgh", p, cv).reshape(B, 1, H, Hd)
 
@@ -212,9 +236,16 @@ class LLMEngine:
         self.device = torch.device(resolve_device(device, "LLMEngine"))
         self.cfg = cfg
         self.ec = engine_config or EngineConfig()
-        if cfg.n_experts:
-            raise ValueError("MoE serving not supported yet (dense decode path only)")
+        if cfg.n_experts and self.ec.tensor_parallel > 1:
+            raise ValueError("MoE serving not supported with tensor_parallel > 1: routed experts are served on "
+                             "one device")
         check_head_dim(cfg.head_dim, self.device)  # prefill runs K1 on the card
+        self.windows = [cfg.layer_window(i) for i in range(cfg.n_layers)]
+        if any(self.windows) and self.device.type == "cuda" and (
+                cfg.head_dim != WINDOW_HEAD_DIM or cfg.n_heads // cfg.kv_heads != 8):
+            raise ValueError(f"sliding layers on the card need head_dim {WINDOW_HEAD_DIM} and 8 query heads per "
+                             f"kv head (the window instances of K1 and K4), not {cfg.head_dim} and "
+                             f"{cfg.n_heads // cfg.kv_heads}")
         # Tensor-parallel mesh: params shard Megatron-style, KV pools shard by
         # kv_heads; everything else (page tables, lengths, sampling state) is
         # replicated on the first slot's device, so the host scheduler below
@@ -236,6 +267,13 @@ class LLMEngine:
             self.mesh = MeshSpec(tensor=tp).build(devs[:tp])
             self.device = devs[0]
         self.slot_devices = self.mesh.slot_devices if self.mesh is not None else [self.device]
+        # YaRN's frequencies, made once per device: a decode graph cannot
+        # capture their copy from the host.
+        self._yarn = None
+        if cfg.rope_scaling is not None:
+            theta = float(cfg.rope_scaling.get("rope_theta", cfg.rope_theta))
+            freqs = yarn_inv_freq(cfg.head_dim, theta, cfg.rope_scaling)
+            self._yarn = [freqs.to(d) for d in self.slot_devices]
         if self.ec.max_seq <= 0:
             self.ec = dataclasses.replace(self.ec, max_seq=cfg.max_seq_len)
         S = self.ec.max_seq
@@ -359,6 +397,14 @@ class LLMEngine:
         self.decode_token_steps = 0
         self.decode_graph_blocks = 0
         self.decode_graph_captures = 0
+        # Routed experts: token-expert rows launched (tokens x top_k, all
+        # layers) in prefill and in decode blocks, K6's grouped-GEMM
+        # launches, and the device-side count of rows per (layer, expert).
+        self.moe_prefill_rows = 0
+        self.moe_decode_rows = 0
+        self.moe_launches = 0
+        self._expert_load = (torch.zeros((L, cfg.n_experts), dtype=torch.int64, device=dev)
+                             if cfg.n_experts else None)
         # Slots mid chunked-prefill: slot -> full prompt tokens. Their device
         # length / page-table rows stay zeroed until the last chunk lands (the
         # decode block's writes for them go to dead page 0), so decode
@@ -505,22 +551,36 @@ class LLMEngine:
         return vocab_lookup(tables, self._rep(tok), v0s, "tensor", self.mesh, self.cfg.dtype)
 
     def _attn_in(self, xs, li, poss):
-        """Each slot's q, k, v on its own heads, rotated at positions ``poss``."""
-        cfg = self.cfg
+        """Each slot's q, k, v on its own heads, rotated at positions ``poss``
+        with layer li's RoPE."""
+        theta, scaling = self.cfg.layer_rope(li)
         lps = [sl[li] for sl in self._sl]
         h = _per_slot(lambda x, lp: rms_norm(x, lp["attn_norm"]), xs, lps)
         qkv = [attn_proj(hh, lp) for hh, lp in zip(h, lps)]
-        qs = [rope(t[0], p, cfg.rope_theta) for t, p in zip(qkv, poss)]
-        ks = [rope(t[1], p, cfg.rope_theta) for t, p in zip(qkv, poss)]
+        fr = self._yarn if scaling is not None else [None] * len(qkv)
+        qs = [rope(t[0], p, theta, scaling, f) for t, p, f in zip(qkv, poss, fr)]
+        ks = [rope(t[1], p, theta, scaling, f) for t, p, f in zip(qkv, poss, fr)]
         return qs, ks, [t[2] for t in qkv]
 
-    def _attn_out_ffn(self, xs, li, os) -> list:
+    def _attn_out_ffn(self, xs, li, os, prefill: bool = False) -> list:
         """The rest of layer li from the attention outputs ``os``
-        [..., H/tp, Hd]: out projection (psum), FFN (psum)."""
+        [..., H/tp, Hd]: out projection (psum), FFN (psum); routed experts
+        (one slot) through K6, their eager prefill dispatch in the phase
+        ``llm.engine.prefill.moe``."""
         lps = [sl[li] for sl in self._sl]
         xs = self._residual(xs, [out_proj(o, lp["wo"]) for o, lp in zip(os, lps)])
         h = _per_slot(lambda x, lp: rms_norm(x, lp["ffn_norm"]), xs, lps)
-        return self._residual(xs, [dense_ffn(hh, lp) for hh, lp in zip(h, lps)])
+        if not self.cfg.n_experts:
+            return self._residual(xs, [dense_ffn(hh, lp) for hh, lp in zip(h, lps)])
+        lp = lps[0]
+        rows = h[0].shape[0] * h[0].shape[1] * self.cfg.expert_top_k
+        with (_tracing.phase("llm.engine.prefill.moe", rows=rows) if prefill else _NO_PHASE):
+            y, counts = _moe.moe_ffn(h[0], lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                                     self.cfg.expert_top_k)
+            self._expert_load[li].add_(counts)
+        if y.is_cuda:
+            self.moe_launches += _moe.GEMM_LAUNCHES_PER_CALL
+        return [xs[0] + y]
 
     def _head(self, xs, pick, pick_first=True):
         """Final norm and the fp32 logits of the positions ``pick`` selects,
@@ -541,13 +601,14 @@ class LLMEngine:
         vps = [vp[li].view(vp.shape[1], -1, ps, Hd) for vp in self._vp]
         q1 = [q[:, 0] for q in qs]
         if self.mesh is None:
-            return [paged_attention(q1[0], kps[0], vps[0], lens, page_tables)]
+            return [paged_attention(q1[0], kps[0], vps[0], lens, page_tables, window=self.windows[li])]
         from ray_tpu_torch.parallel.sharding import PartitionSpec as P
         from ray_tpu_torch.parallel.sharding import from_locals
 
         pool = P("tensor", None, None, None)
         o = paged_attention(from_locals(q1, self.mesh, P(None, "tensor", None)), from_locals(kps, self.mesh, pool),
-                            from_locals(vps, self.mesh, pool), lens, page_tables, mesh=self.mesh)
+                            from_locals(vps, self.mesh, pool), lens, page_tables, mesh=self.mesh,
+                            window=self.windows[li])
         return o.locals
 
     def _prefill_logits(self, tokens, lengths, third):
@@ -569,7 +630,8 @@ class LLMEngine:
         places = self._rep(self._pool_rows(third) if self.paged else self._tensor(third, torch.long))
         for li in range(cfg.n_layers):
             qs, ks, vs = self._attn_in(xs, li, poss)
-            os = [flash_attention(q, kk, v, causal=True, segment_ids=sg) for q, kk, v, sg in zip(qs, ks, vs, segs)]
+            os = [flash_attention(q, kk, v, causal=True, segment_ids=sg, window=self.windows[li])
+                  for q, kk, v, sg in zip(qs, ks, vs, segs)]
             for s, (kk, v) in enumerate(zip(ks, vs)):
                 KVl = kk.shape[2]
                 if self.paged:
@@ -579,7 +641,7 @@ class LLMEngine:
                 else:
                     self._kp[s][li][places[s], :P] = kk
                     self._vp[s][li][places[s], :P] = v
-            xs = self._attn_out_ffn(xs, li, os)
+            xs = self._attn_out_ffn(xs, li, os, prefill=True)
         return self._head(xs, lambda x: x[torch.arange(k, device=x.device), lens.to(x.device) - 1])
 
     def _prefill_batch_impl(self, tokens, lengths, third, gen, idxs):
@@ -630,11 +692,17 @@ class LLMEngine:
         pos = (start + tpos)[None]  # [1, Tb] absolute positions
         # Key validity [Tb, C*ps + Tb]: context keys below start (always at or
         # before any query), tail keys causal within the tail and real
-        # (before length). One mask for all heads.
-        ctx_valid = (torch.arange(C * ps, device=dev) < start)[None, :].expand(Tb, C * ps)
+        # (before length). One mask for all heads; a sliding layer's also
+        # drops the keys at or before query position - window.
+        cpos = torch.arange(C * ps, device=dev)
+        ctx_valid = (cpos < start)[None, :].expand(Tb, C * ps)
         tail_valid = (tpos[None, :] <= tpos[:, None]) & ((start + tpos)[None, :] < length)
         mask = torch.cat([ctx_valid, tail_valid], dim=1)[:, None, None, :]
-        poss, masks = self._rep(pos), self._rep(mask)
+        poss, masks = self._rep(pos), {0: self._rep(mask)}
+        for w in set(self.windows) - {0}:
+            qpos = (start + tpos)[:, None]
+            near = torch.cat([cpos[None, :] > qpos - w, (start + tpos)[None, :] > qpos - w], dim=1)
+            masks[w] = self._rep(mask & near[:, None, None, :])
         ctx_rows, tail_rows = self._rep(self._pool_rows(ctx_pages)), self._rep(self._pool_rows(tail_pages))
         for li in range(cfg.n_layers):
             qs, ks, vs = self._attn_in(xs, li, poss)
@@ -649,10 +717,10 @@ class LLMEngine:
                 vall = torch.cat([vp.index_select(1, ctx_rows[s]), vt], dim=1)
                 qg = q[0].reshape(Tb, KVl, group, Hd)
                 scores = torch.einsum("tkgh,ksh->tkgs", qg, kall).float() / math.sqrt(Hd)
-                scores = scores.masked_fill(~masks[s], -1e30)
+                scores = scores.masked_fill(~masks[self.windows[li]][s], -1e30)
                 p = torch.softmax(scores, dim=-1).to(q.dtype)
                 os.append(torch.einsum("tkgs,ksh->tkgh", p, vall).reshape(1, Tb, Hl, Hd))
-            xs = self._attn_out_ffn(xs, li, os)
+            xs = self._attn_out_ffn(xs, li, os, prefill=True)
         return self._head(xs, lambda x: x[:, length - 1 - start])  # [1, V]
 
     def _tail_args(self, row, tokens, start, n_tok):
@@ -728,7 +796,7 @@ class LLMEngine:
             poss = self._rep(lengths[:, None])
             for li in range(cfg.n_layers):
                 qs, ks, vs = self._attn_in(xs, li, poss)
-                os = [_dense_attend(q, k, v, self._kp[s][li], self._vp[s][li], lenss[s])
+                os = [_dense_attend(q, k, v, self._kp[s][li], self._vp[s][li], lenss[s], self.windows[li])
                       for s, (q, k, v) in enumerate(zip(qs, ks, vs))]
                 xs = self._attn_out_ffn(xs, li, os)
             logits = self._head(xs, lambda x: x[:, 0], pick_first=False)
@@ -768,6 +836,8 @@ class LLMEngine:
             return out
         block.graph.replay()
         _k4.LAUNCHES += block.k4_launches
+        _moe.LAUNCHES += block.moe_launches
+        self.moe_launches += block.moe_launches
         self.decode_graph_blocks += 1
         return block.toks, self.d_last, self.d_lengths
 
@@ -775,9 +845,10 @@ class LLMEngine:
         """Captures the paged decode block of n token steps at B =
         max_slots, greedy or drawing from the engine's generator (whose
         state the graph registers, so each replay advances its stream).
-        Capturing runs nothing: the engine's state is unchanged. The K4
-        launches the capture recorded are taken back out of
-        ``paged_attention.LAUNCHES``; each replay adds them. Thread-local
+        Capturing runs nothing: the engine's state is unchanged. The K4 and
+        K6 launches the capture recorded are taken back out of
+        ``paged_attention.LAUNCHES`` and ``moe.LAUNCHES`` (and the engine's
+        counters); each replay adds them. Thread-local
         capture: the server's callers may touch the card from other
         threads meanwhile. The garbage collector pauses during the capture:
         a collection there could destroy an unreachable engine's graphs,
@@ -788,15 +859,18 @@ class LLMEngine:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         before, collecting = _k4.LAUNCHES, gc.isenabled()
+        counted = (_moe.LAUNCHES, self.moe_launches)
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
                 toks = self._decode_eager(n, self._gen, greedy)[0]
         finally:
             launches, _k4.LAUNCHES = _k4.LAUNCHES - before, before
+            moe_launches = _moe.LAUNCHES - counted[0]
+            _moe.LAUNCHES, self.moe_launches = counted
             if collecting:
                 gc.enable()
-        self._graphs[(n, greedy)] = _DecodeGraph(graph, toks, launches)
+        self._graphs[(n, greedy)] = _DecodeGraph(graph, toks, launches, moe_launches)
         self.decode_graph_captures += 1
 
     @torch.no_grad()
@@ -960,7 +1034,14 @@ class LLMEngine:
         return {k: getattr(self, k) for k in (
             "steps", "slot_steps", "prefill_groups", "prefill_real_tokens",
             "prefill_launched_tokens", "decode_blocks", "decode_token_steps",
-            "decode_graph_blocks", "decode_graph_captures")}
+            "decode_graph_blocks", "decode_graph_captures", "moe_prefill_rows",
+            "moe_decode_rows", "moe_launches")}
+
+    def expert_load(self):
+        """The rows each expert of each layer has received, [L, E] int64 on
+        the host (one copy from the device; None without experts). Every
+        prefill and decode block adds its rows, the dead slots' included."""
+        return None if self._expert_load is None else self._expert_load.cpu()
 
     def _prefill_dispatch(self, bucket: int, rows: int, real: int):
         """Counts one prefill launch of ``rows`` x ``bucket`` tokens holding
@@ -968,6 +1049,8 @@ class LLMEngine:
         self.prefill_groups += 1
         self.prefill_real_tokens += real
         self.prefill_launched_tokens += rows * bucket
+        if self.cfg.n_experts:
+            self.moe_prefill_rows += rows * bucket * self.cfg.expert_top_k * self.cfg.n_layers
         return _tracing.phase("llm.engine.prefill.dispatch", bucket=bucket, rows=rows, real_tokens=real)
 
     @property
@@ -1242,6 +1325,8 @@ class LLMEngine:
                         n = fits[-1]
                         self.decode_blocks += 1
                         self.decode_token_steps += n
+                        self.moe_decode_rows += n * self.ec.max_slots * self.cfg.expert_top_k * (
+                            self.cfg.n_layers if self.cfg.n_experts else 0)
                         replays = self.decode_graph_blocks
                         with _tracing.phase("llm.engine.decode.dispatch", n=n, slots=len(active)) as dph:
                             toks = self._decode(n, self._gen)[0]

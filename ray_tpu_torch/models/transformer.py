@@ -24,6 +24,14 @@ contract (causal, scale folded into q) on the same kernels; "ring" and
 mesh (the dense reference off it). Not carried over: ``attention_block_q/k``
 (TPU tile sizes; the CUDA kernels have fixed 64-row tiles).
 
+Per-layer attention (Mellum2's block): an explicit ``head_dim`` (q is
+n_heads * head_dim wide), ``layer_types`` with a ``sliding_window`` (a
+sliding layer's query i sees keys i - window < j <= i; "flash" and
+"reference" take it, forward only on the card: K3/K2 take no window, so
+``make_train_step`` refuses such a model), and ``rope_scaling`` (YaRN) on
+the full layers while the sliding layers rotate at ``rope_theta``. At their
+defaults every existing configuration draws and computes as before.
+
 Parallelism: ``param_logical_axes`` and ``state_logical_axes`` annotate the
 trees for ``ray_tpu_torch.parallel.shard_pytree``; a state placed that way
 trains through the same ``train_step``, which then computes per slot
@@ -74,20 +82,49 @@ class TransformerConfig:
     # Training loss over sequence chunks of this size, so the full [B, S, V]
     # logits never materialise (0 = off). Needs chunk | (S - 1).
     ce_chunk: int = 0
+    # Width of one attention head; None -> d_model // n_heads. Set, q is
+    # n_heads * head_dim wide whatever d_model is.
+    head_dim: Optional[int] = None
+    # Attention kind per layer, "full" or "sliding" (None: every layer full).
+    # A sliding layer's query at position i sees the keys j with
+    # i - sliding_window < j <= i: sliding_window keys, itself included.
+    layer_types: Optional[tuple] = None
+    sliding_window: int = 0
+    # RoPE scaling of the full layers (sliding layers rotate at rope_theta,
+    # unscaled): None, or YaRN's keys {"rope_type": "yarn", "factor",
+    # "original_max_position_embeddings", "beta_fast", "beta_slow",
+    # "attention_factor"}, with its own "rope_theta" where it differs.
+    rope_scaling: Optional[dict] = None
 
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
-    @property
-    def head_dim(self) -> int:
-        return self.d_model // self.n_heads
-
     def __post_init__(self):
-        if self.d_model % self.n_heads:
-            raise ValueError(f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
+        if self.head_dim is None:
+            if self.d_model % self.n_heads:
+                raise ValueError(f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.n_heads % self.kv_heads:
             raise ValueError(f"n_heads {self.n_heads} not divisible by kv_heads {self.kv_heads}")
+        if self.layer_types is not None:
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+            if len(self.layer_types) != self.n_layers or set(self.layer_types) - {"full", "sliding"}:
+                raise ValueError(f"layer_types must give 'full' or 'sliding' for each of the {self.n_layers} layers")
+            if "sliding" in self.layer_types and self.sliding_window <= 0:
+                raise ValueError("sliding layers need sliding_window > 0")
+        if self.rope_scaling is not None and self.rope_scaling.get("rope_type", "yarn") != "yarn":
+            raise ValueError(f"rope_scaling {self.rope_scaling.get('rope_type')!r} is not supported (yarn)")
+
+    def layer_window(self, i: int) -> int:
+        """Layer i's attention window in keys, 0 for full attention."""
+        return self.sliding_window if self.layer_types is not None and self.layer_types[i] == "sliding" else 0
+
+    def layer_rope(self, i: int):
+        """(theta, scaling or None) of layer i's rotary positions."""
+        if self.rope_scaling is None or self.layer_window(i):
+            return self.rope_theta, None
+        return float(self.rope_scaling.get("rope_theta", self.rope_theta)), self.rope_scaling
 
 
 def param_shapes(cfg: TransformerConfig) -> dict:
@@ -259,16 +296,46 @@ def rms_norm(x, w, eps=1e-6):
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * w.to(x.dtype)
 
 
-def rope(x, positions, theta):
+def yarn_inv_freq(head_dim: int, theta: float, scaling: dict):
+    """YaRN's rotation frequencies [head_dim // 2] (fp32), as transformers'
+    ``_compute_yarn_parameters`` defines them: the plain frequencies
+    theta^(-2i/d) where a dimension turns often within the original context,
+    those divided by ``factor`` where it turns rarely, and a linear ramp
+    between the correction dims of ``beta_fast`` and ``beta_slow``."""
+    d, half = head_dim, head_dim // 2
+    orig = scaling["original_max_position_embeddings"]
+    extra = torch.exp(-math.log(theta) * torch.arange(0, half, dtype=torch.float32) / half)
+    inter = extra / scaling["factor"]
+
+    def corr(rot):
+        return d * math.log(orig / (rot * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(corr(scaling.get("beta_fast", 32))), 0)
+    high = min(math.ceil(corr(scaling.get("beta_slow", 1))), d - 1)
+    ramp = ((torch.arange(half, dtype=torch.float32) - low) / max(high - low, 1e-3)).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
+
+
+def rope(x, positions, theta, scaling=None, freqs=None):
     """x: [B, S, H, Hd]; positions: [B, S]. Rotates the two halves of the
-    head dimension (the JAX code's layout, whatever its docstring says)."""
+    head dimension (the JAX code's layout, whatever its docstring says).
+    ``scaling`` (YaRN): its frequencies (``freqs``, or ``yarn_inv_freq``'s
+    made here), and cos and sin multiplied by its ``attention_factor``."""
     half = x.shape[-1] // 2
-    freqs = torch.exp(
-        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    )
+    if scaling is None:
+        freqs = torch.exp(
+            -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+        )
+    elif freqs is None:
+        freqs = yarn_inv_freq(x.shape[-1], theta, scaling).to(x.device)
     angles = positions[..., None].float() * freqs  # [B, S, half]
-    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    if scaling is None:
+        cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+        sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    else:
+        mscale = float(scaling.get("attention_factor") or 0.1 * math.log(scaling["factor"]) + 1.0)
+        cos = (torch.cos(angles) * mscale)[:, :, None, :].to(x.dtype)
+        sin = (torch.sin(angles) * mscale)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
@@ -298,16 +365,19 @@ def dense_ffn(x, p):
     return linear(torch.nn.functional.silu(gate) * up, p["w_down"])
 
 
-def _attention(q, k, v, cfg: TransformerConfig, segment_ids=None):
+def _attention(q, k, v, cfg: TransformerConfig, segment_ids=None, window: int = 0):
     """Dispatches to the configured attention implementation. q [B, S, H, D],
-    k/v [B, S, KV, D]: both implementations take grouped K/V as they are."""
+    k/v [B, S, KV, D]: both implementations take grouped K/V as they are.
+    ``window`` > 0 (a sliding layer) only with "flash" or "reference"."""
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "flash" if q.is_cuda else "reference"
     if impl == "flash":
-        return flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+        return flash_attention(q, k, v, causal=True, segment_ids=segment_ids, window=window)
     if impl == "reference":
-        return mha_reference(q, k, v, causal=True, segment_ids=segment_ids)
+        return mha_reference(q, k, v, causal=True, segment_ids=segment_ids, window=window)
+    if window:
+        raise NotImplementedError(f"attention_impl {impl!r} has no sliding window; use 'flash' or 'reference'")
     if impl == "splash":
         return splash_attention(q, k, v, causal=True, segment_ids=segment_ids)
     if impl == "ring":
@@ -351,13 +421,14 @@ def load_balance_loss(weights, top_idx, n_experts: int):
     return n_experts * (me * ce).sum()
 
 
-def _layer(x, lp, cfg: TransformerConfig, positions, segment_ids=None):
-    """One decoder block. x: [B, S, D] in cfg.dtype -> (x, MoE aux loss)."""
+def _layer(x, lp, cfg: TransformerConfig, positions, segment_ids=None, li: int = 0):
+    """Decoder block ``li``. x: [B, S, D] in cfg.dtype -> (x, MoE aux loss)."""
     h = rms_norm(x, lp["attn_norm"])
     q, k, v = attn_proj(h, lp)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    o = _attention(q, k, v, cfg, segment_ids)
+    theta, scaling = cfg.layer_rope(li)
+    q = rope(q, positions, theta, scaling)
+    k = rope(k, positions, theta, scaling)
+    o = _attention(q, k, v, cfg, segment_ids, cfg.layer_window(li))
     x = x + out_proj(o, lp["wo"])
     h = rms_norm(x, lp["ffn_norm"])
     if cfg.n_experts:
@@ -413,7 +484,7 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig, segment_ids=Non
     body = _layer_body(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = body(x, layer_params(params, i), cfg, positions, segment_ids)
+        x, a = body(x, layer_params(params, i), cfg, positions, segment_ids, i)
         aux = aux + a
     return rms_norm(x, params["final_norm"]), aux
 
@@ -557,6 +628,10 @@ def make_train_step(cfg: TransformerConfig, optimizer=None):
     batch's sharding), AdamW steps the unique shards, and grad_norm counts
     each unique shard once."""
     make_opt = optimizer or adamw
+
+    if cfg.layer_types is not None and "sliding" in cfg.layer_types:
+        raise NotImplementedError(
+            "training a model with sliding-window layers: the backward kernels K3/K2 take no window yet")
 
     def init_state(generator: torch.Generator, device=None):
         device = resolve_device(device, "init_state")

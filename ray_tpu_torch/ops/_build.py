@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 OUT = Path(__file__).resolve().parent / "_build_out"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "moe_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -41,6 +41,8 @@ NEG_INF = -1e30
 # Head dims the CUDA kernels K1, K3 and K2 are built for (template
 # instances in csrc/flash_fwd.cu and csrc/flash_bwd.cu).
 HEAD_DIMS = (64, 128, 256)
+# The head dim of K1's sliding-window instance.
+WINDOW_HEAD_DIM = 128
 
 # Launches of each kernel (incremented where it is launched, nowhere else):
 # K1 flash forward, K3 backward dQ, K2 backward dK/dV.
@@ -59,22 +61,28 @@ def check_head_dim(head_dim, device):
             f"(supported: {', '.join(map(str, HEAD_DIMS))})")
 
 
-def _valid_pairs(S_q, S_k, causal, segment_ids, device):
+def _valid_pairs(S_q, S_k, causal, segment_ids, device, window=0):
     """[B or 1, 1, S_q, S_k] bool: the (query, key) pairs that attend under
-    the causal and segment masks, or None when nothing is masked."""
+    the causal, window and segment masks, or None when nothing is masked.
+    ``window`` > 0 keeps the keys j of query i with i - window < j (query
+    and key positions aligned at the end, as the causal mask's)."""
     valid = None
     if causal:
         valid = torch.ones(S_q, S_k, dtype=torch.bool, device=device).tril(S_k - S_q)
+    if window:
+        near = torch.ones(S_q, S_k, dtype=torch.bool, device=device).triu(S_k - S_q - window + 1)
+        valid = near if valid is None else valid & near
     if segment_ids is not None:
         seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
         valid = seg if valid is None else valid & seg
     return valid
 
 
-def mha_reference(q, k, v, causal=True, scale=None, segment_ids=None, return_lse=False):
+def mha_reference(q, k, v, causal=True, scale=None, segment_ids=None, return_lse=False, window=0):
     """q: [B, S, H, D]; k, v: [B, S, KV, D] (KV divides H) -> [B, S, H, D].
     Softmax in fp32. segment_ids: optional [B, S] int; attention is masked
-    to same-segment pairs. ``return_lse`` also returns the per-row
+    to same-segment pairs. ``window`` > 0: query i sees keys j > i - window
+    only (a sliding layer). ``return_lse`` also returns the per-row
     log-sum-exp [B, H, S] (fp32) that the kernel writes."""
     *_, H, D = q.shape
     KV = k.shape[2]
@@ -84,7 +92,7 @@ def mha_reference(q, k, v, causal=True, scale=None, segment_ids=None, return_lse
         v = v.repeat_interleave(rep, dim=2)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    valid = _valid_pairs(s.shape[-2], s.shape[-1], causal, segment_ids, q.device)
+    valid = _valid_pairs(s.shape[-2], s.shape[-1], causal, segment_ids, q.device, window)
     if valid is not None:
         s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
@@ -134,6 +142,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.flash_fwd_bf16.restype = i
+        lib.flash_fwd_window_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.flash_fwd_window_bf16.restype = i
         lib.flash_fwd_error_string.argtypes = [i]
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -191,22 +201,27 @@ def _stream(t):
     return stream.cuda_stream
 
 
-def flash_fwd(q, k, v, segment_ids=None, causal=True, scale=None):
+def flash_fwd(q, k, v, segment_ids=None, causal=True, scale=None, window=0):
     """Launches kernel K1 on CUDA tensors. Returns (o [B, S, H, D] bf16,
-    lse [B * H, S] fp32)."""
+    lse [B * H, S] fp32). ``window`` > 0 (causal only) launches K1's window
+    instance: KV tiles wholly left of a q tile's window are never loaded."""
     global LAUNCHES
     B, S, H, D = q.shape
     KV = k.shape[2]
     _check_qkv(q, k, v)
+    if window and (not causal or D != WINDOW_HEAD_DIM):
+        raise ValueError(f"flash kernel: a window needs causal attention at head dim {WINDOW_HEAD_DIM}")
     seg = _seg_arg(segment_ids, B, S, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     lib = _lib()
-    err = lib.flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr() if seg is not None else None,
-        o.data_ptr(), lse.data_ptr(), B, S, H, KV, D, int(bool(causal)), float(scale), _stream(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr() if seg is not None else None,
+            o.data_ptr(), lse.data_ptr(), B, S, H, KV, D, int(bool(causal)), float(scale))
+    if window:
+        err = lib.flash_fwd_window_bf16(*args, int(window), _stream(q))
+    else:
+        err = lib.flash_fwd_bf16(*args, _stream(q))
     if err:
         raise RuntimeError(f"flash kernel launch failed: {lib.flash_fwd_error_string(err).decode()}")
     LAUNCHES += 1
@@ -306,15 +321,22 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, scale=None, segment_ids=None):
+def flash_attention(q, k, v, causal=True, scale=None, segment_ids=None, window=0):
     """Flash attention. q: [B, S, H, D]; k, v: [B, S, KV, D] -> [B, S, H, D].
 
     CPU tensors take the plain version (autograd differentiates it); CUDA
-    tensors run kernel K1, and their gradient kernels K3 and K2."""
+    tensors run kernel K1, and their gradient kernels K3 and K2. ``window``
+    > 0 (a sliding layer: query i sees keys i - window < j <= i) is
+    forward-only on the card: K3/K2 take no window, so a CUDA input that
+    needs a gradient raises."""
     H, D = q.shape[2], q.shape[3]
     if H % k.shape[2]:
         raise ValueError(f"n_heads {H} not divisible by kv_heads {k.shape[2]}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
-        return mha_reference(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids)
+        return mha_reference(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids, window=window)
+    if window:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError("flash attention with a window has no backward: K3/K2 take no window yet")
+        return flash_fwd(q, k, v, segment_ids=segment_ids, causal=causal, scale=scale, window=window)[0]
     return _FlashAttention.apply(q, k, v, segment_ids, causal, scale)

@@ -69,6 +69,13 @@
 //   causal blocks first. No atomics: O and LSE are the same bits launch
 //   after launch.
 //
+// - A sliding window (the WIN instance, D 128 only, `flash_fwd_window_bf16`):
+//   query i sees keys i - window < j <= i. A block starts its ring at the
+//   key tile of its first row's first visible key, so tiles wholly left of
+//   every row's window are never loaded; a tile that crosses some row's
+//   left edge takes the MASKED softmax. At a 4096-token prompt and a
+//   1024-key window a block of the prompt's last rows loads 18 of its 64 tiles.
+//
 // Layout at the interface: q/o [B, S, H, D], k/v [B, S, KV, D] (row-major,
 // contiguous, 16-byte aligned), seg [B, S] int32 or null, lse [B*H, S] fp32.
 // D must be 64, 128 or 256. Helpers shared with K3/K2 live in sm90.cuh.
@@ -124,10 +131,12 @@ struct RowState {
 // The online-softmax step on one tile, in place: S -> P (fp32, to be
 // rounded to bf16 for P V), m and l updated, and alpha = 2^(m_old - m_new),
 // by which the O accumulator is to be rescaled. MASKED adds the per-element
-// causal, ragged and segment tests (seg_k: the tile's key segments, or null).
-template <bool MASKED>
+// causal, ragged and segment tests (seg_k: the tile's key segments, or null),
+// and WIN the window's left edge (key > row - window).
+template <bool MASKED, bool WIN>
 __device__ __forceinline__ void softmax_step(float (&sc)[32], RowState& r, const int* seg_k, int k0, int S,
-                                             int causal, int lane, float scale_log2, float (&alpha)[2]) {
+                                             int causal, int window, int lane, float scale_log2,
+                                             float (&alpha)[2]) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -135,7 +144,8 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], RowState& r, const
     float x = sc[i] * scale_log2;
     if (MASKED) {
       const int cl = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1), col = k0 + cl;
-      const bool ok = col < S && (!causal || col <= r.idx[h]) && (!seg_k || seg_k[cl] == r.seg[h]);
+      bool ok = col < S && (!causal || col <= r.idx[h]) && (!seg_k || seg_k[cl] == r.seg[h]);
+      if constexpr (WIN) ok = ok && col > r.idx[h] - window;
       x = ok ? x : -INFINITY;
     }
     sc[i] = x;
@@ -162,19 +172,21 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], RowState& r, const
   for (int h = 0; h < 2; ++h) r.l[h] = r.l[h] * alpha[h] + sum[h];
 }
 
-// The softmax step on ring tile t, through the MASKED instance where the
-// tile holds the diagonal, the ragged tail or a segment boundary.
-template <int D>
+// The softmax step on key tile t (ring tile t - t0), through the MASKED
+// instance where the tile holds the diagonal, the ragged tail, a segment
+// boundary or (WIN) the window's left edge for some row of q0w's 64.
+template <int D, bool WIN>
 __device__ __forceinline__ void softmax_tile(float (&sc)[32], RowState& r, const SmemFwd<D>& sm, const int* segb, int t,
-                                             int q0w, int own_lo, int own_hi, int S, int causal, int lane,
-                                             float scale_log2, float (&alpha)[2]) {
-  const int s = t % Fwd<D>::NSTAGE, k0 = t * BT;
-  const bool masked = (causal && k0 + BT - 1 > q0w) || k0 + BT > S ||
-                      (segb && !(sm.seg_lo[s] == sm.seg_hi[s] && sm.seg_lo[s] == own_lo && own_lo == own_hi));
+                                             int t0, int q0w, int own_lo, int own_hi, int S, int causal, int window,
+                                             int lane, float scale_log2, float (&alpha)[2]) {
+  const int s = (t - t0) % Fwd<D>::NSTAGE, k0 = t * BT;
+  bool masked = (causal && k0 + BT - 1 > q0w) || k0 + BT > S ||
+                (segb && !(sm.seg_lo[s] == sm.seg_hi[s] && sm.seg_lo[s] == own_lo && own_lo == own_hi));
+  if constexpr (WIN) masked = masked || k0 < q0w + BT - window;
   if (masked) {
-    softmax_step<true>(sc, r, segb ? sm.seg_k[s] : nullptr, k0, S, causal, lane, scale_log2, alpha);
+    softmax_step<true, WIN>(sc, r, segb ? sm.seg_k[s] : nullptr, k0, S, causal, window, lane, scale_log2, alpha);
   } else {
-    softmax_step<false>(sc, r, nullptr, k0, S, causal, lane, scale_log2, alpha);
+    softmax_step<false, WIN>(sc, r, nullptr, k0, S, causal, window, lane, scale_log2, alpha);
   }
 }
 
@@ -186,11 +198,14 @@ __device__ __forceinline__ void release(uint64_t* empty, int t, int lane) {
   __syncwarp();
 }
 
-template <int D>
+// WIN: the sliding-window instance (causal, window > 0 keys): a block loads
+// key tiles from t0, the tile of its first row's first visible key, on; the
+// instance without it (t0 = 0, no window test) is the kernel as it was.
+template <int D, bool WIN>
 __global__ void __launch_bounds__(Fwd<D>::NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg, bf16* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int KV, int causal, float scale) {
+                 float* __restrict__ lse, int S, int H, int KV, int causal, float scale, int window) {
   constexpr int NP = D / PANEL_COLS, KSTEPS = D / 16, NCONS = Fwd<D>::NCONS, NSTAGE = Fwd<D>::NSTAGE;
   extern __shared__ unsigned char smem_raw[];
   SmemFwd<D>& sm = *reinterpret_cast<SmemFwd<D>*>(align1024(smem_raw));
@@ -198,6 +213,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   const int q0 = (gridDim.y - 1 - blockIdx.y) * (NCONS * BT);  // heaviest causal blocks first
   int n_tiles = (S + BT - 1) / BT;
   if (causal) n_tiles = min(n_tiles, (q0 + NCONS * BT - 1) / BT + 1);
+  int t0 = 0;  // ring tile j holds key tile t0 + j
+  if constexpr (WIN) t0 = max(0, q0 - window + 1) / BT;
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
   init_barriers<NSTAGE>(sm.full, sm.empty, &sm.own, NCONS * 4);
@@ -208,14 +225,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     if constexpr (NCONS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     if (threadIdx.x / 32 % 4 == 0) {
       load_own<D, NCONS>(sm.q, nullptr, &map_q, nullptr, h, q0, b, segb, S, sm.own_lo, sm.own_hi, &sm.own, lane);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % NSTAGE, k0 = t * BT;
+      for (int t = t0; t < n_tiles; ++t) {
+        const int s = (t - t0) % NSTAGE, k0 = t * BT;
         int sk0 = 0, sk1 = 0;
         if (segb) {
           sk0 = k0 + lane < S ? segb[k0 + lane] : 0;
           sk1 = k0 + lane + 32 < S ? segb[k0 + lane + 32] : 0;
         }
-        mbar_wait(&sm.empty[s], ((t / NSTAGE) & 1) ^ 1);
+        mbar_wait(&sm.empty[s], (((t - t0) / NSTAGE) & 1) ^ 1);
         if (segb) {
           int lo, hi;
           warp_range(sk0, k0 + lane < S, sk1, k0 + lane + 32 < S, lo, hi);
@@ -271,7 +288,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     uint32_t a_p[4][4];
     mbar_wait(&sm.full[0], 0);
     {
-      const uint64_t dsc_k = desc_sw128(sm.k[0]);
+      const uint64_t dsc_k = desc_sw128(sm.k[0]);  // key tile t0
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_s, dsc_q + kstep(kk), dsc_k + kstep(kk), kk);
@@ -280,11 +297,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       reg_fence(acc_s);
     }
     // O is still 0: tile 0 needs no rescale.
-    softmax_tile(acc_s, rows, sm, segb, 0, q0w, own_lo, own_hi, S, causal, lane, scale_log2, alpha);
+    softmax_tile<D, WIN>(acc_s, rows, sm, segb, t0, t0, q0w, own_lo, own_hi, S, causal, window, lane, scale_log2,
+                         alpha);
     acc_to_a(acc_s, a_p);
-    for (int t = 1; t < n_mine; ++t) {
-      mbar_wait(&sm.full[t % NSTAGE], (t / NSTAGE) & 1);
-      const uint64_t dsc_k = desc_sw128(sm.k[t % NSTAGE]), dsc_v = desc_sw128(sm.v[(t - 1) % NSTAGE]);
+    for (int t = t0 + 1; t < n_mine; ++t) {
+      const int j = t - t0;
+      mbar_wait(&sm.full[j % NSTAGE], (j / NSTAGE) & 1);
+      const uint64_t dsc_k = desc_sw128(sm.k[j % NSTAGE]), dsc_v = desc_sw128(sm.v[(j - 1) % NSTAGE]);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss(acc_s, dsc_q + kstep(kk), dsc_k + kstep(kk), kk);
@@ -295,11 +314,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       reg_fence(acc_o);
       wg_wait<1>();  // S of tile t is in; P V may still run
       reg_fence(acc_s);
-      softmax_tile(acc_s, rows, sm, segb, t, q0w, own_lo, own_hi, S, causal, lane, scale_log2, alpha);
+      softmax_tile<D, WIN>(acc_s, rows, sm, segb, t, t0, q0w, own_lo, own_hi, S, causal, window, lane, scale_log2,
+                           alpha);
       wg_wait<0>();
       reg_fence(acc_o);
       reg_fence(a_p);
-      release<NSTAGE>(sm.empty, t - 1, lane);
+      release<NSTAGE>(sm.empty, j - 1, lane);
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -307,7 +327,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       acc_to_a(acc_s, a_p);
     }
     {
-      const uint64_t dsc_v = desc_sw128(sm.v[(n_mine - 1) % NSTAGE]);
+      const uint64_t dsc_v = desc_sw128(sm.v[(n_mine - 1 - t0) % NSTAGE]);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_rs_panels(acc_o, a_p[kk], dsc_v, kk);
@@ -316,10 +336,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       reg_fence(acc_o);
       reg_fence(a_p);
     }
-    release<NSTAGE>(sm.empty, n_mine - 1, lane);
+    release<NSTAGE>(sm.empty, n_mine - 1 - t0, lane);
     for (int t = n_mine; t < n_tiles; ++t) {
-      mbar_wait(&sm.full[t % NSTAGE], (t / NSTAGE) & 1);
-      release<NSTAGE>(sm.empty, t, lane);
+      mbar_wait(&sm.full[(t - t0) % NSTAGE], ((t - t0) / NSTAGE) & 1);
+      release<NSTAGE>(sm.empty, t - t0, lane);
     }
 
     // Epilogue: the quad's shares of l, O / l in bf16, LSE in natural log.
@@ -342,21 +362,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   }
 }
 
-template <int D>
+template <int D, bool WIN>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B, int S, int H,
-           int KV, int causal, float scale, cudaStream_t stream) {
+           int KV, int causal, float scale, int window, cudaStream_t stream) {
   CUtensorMap m[3];
   if (!(make_map(&m[0], q, B, S, H, D) && make_map(&m[1], k, B, S, KV, D) && make_map(&m[2], v, B, S, KV, D))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = static_cast<int>(sizeof(SmemFwd<D>)) + 1024;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   constexpr int rows = Fwd<D>::NCONS * BT;
   const dim3 grid(B * H, (S + rows - 1) / rows);
-  flash_fwd_kernel<D><<<grid, Fwd<D>::NTHREADS, smem, stream>>>(m[0], m[1], m[2], static_cast<const int*>(seg),
-                                                         static_cast<bf16*>(o), static_cast<float*>(lse), S, H, KV,
-                                                         causal, scale);
+  flash_fwd_kernel<D, WIN><<<grid, Fwd<D>::NTHREADS, smem, stream>>>(
+      m[0], m[1], m[2], static_cast<const int*>(seg), static_cast<bf16*>(o), static_cast<float*>(lse), S, H, KV, causal,
+      scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,9 +393,21 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
   if (bad_args(B, S, H, KV, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch<64>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
-    case 128: return launch<128>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
-    case 256: return launch<256>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, st);
+    case 64: return launch<64, false>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, 0, st);
+    case 128: return launch<128, false>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, 0, st);
+    case 256: return launch<256, false>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, 0, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The sliding-window forward (causal; query i sees keys i - window < j <=
+// i), at head dim 128, the one the window's model has. Returns as above.
+extern "C" int flash_fwd_window_bf16(const void* q, const void* k, const void* v, const void* seg, void* o,
+                                     void* lse, int B, int S, int H, int KV, int head_dim, int causal, float scale,
+                                     int window, void* stream) {
+  if (bad_args(B, S, H, KV, head_dim) || !causal || window <= 0 || head_dim != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<128, true>(q, k, v, seg, o, lse, B, S, H, KV, causal, scale, window,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -39,6 +39,14 @@
 //   the result is the same bits launch after launch, writes o and resets
 //   the counter to 0. A sequence with one valid run writes o directly.
 //
+// - A sliding window (the WIN instance, `paged_decode_window_bf16`): only the
+//   last `window` keys are visible, so a sequence's runs start at the page
+//   of key len - window, and that page's tiles before the key's tile are
+//   not loaded; the keys before it in its tile are masked. The grid holds
+//   only the runs a window can span (the wrapper's plan over those pages),
+//   and the split and the last-ticket merge work on them as on a whole
+//   sequence. The instance without it is the kernel as it was.
+//
 // Layout at the interface: q/o [B, H, D]; k/v pools [KV, P_total, ps, D]
 // (the engine's linear pool [KV, P_total * ps, D] viewed per page);
 // lengths [B] int32 (valid tokens including the current one); page table
@@ -94,12 +102,12 @@ __device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
   return old;
 }
 
-template <int G>
+template <int G, bool WIN>
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, const bf16* __restrict__ vp,
                     const int* __restrict__ lens, const int* __restrict__ table, bf16* __restrict__ o,
                     float* __restrict__ part, int* __restrict__ cnt, int H, int D, int P_total, int ps,
-                    int ppseq, int ppb, int tt, int nbuf, float scale_log2) {
+                    int ppseq, int ppb, int tt, int nbuf, float scale_log2, int window) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // Grid (kv head, sequence, run): every sequence's first runs are
   // scheduled before any later run, so the blocks that exit at once come last.
@@ -107,7 +115,14 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // The run's first page id is read beside the length, not after it.
   const int len = lens[b];
-  const int first_page = tid == 0 ? table[(size_t)b * ppseq + (size_t)r * ppb] : 0;
+  // WIN: keys before lo are outside the window; the runs start at its page.
+  int lo = 0, p_lo = 0;
+  if constexpr (WIN) {
+    lo = max(0, len - window);
+    p_lo = lo / ps;
+  }
+  const int first_page =
+      tid == 0 && (!WIN || (len > 0 && p_lo + r * ppb < ppseq)) ? table[(size_t)b * ppseq + p_lo + (size_t)r * ppb] : 0;
   bf16* ob = o + ((size_t)b * H + (size_t)kvh * G) * D;
   if (len <= 0) {
     if (r == 0) {
@@ -116,14 +131,17 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
     return;
   }
   const int n_pages = min((len + ps - 1) / ps, ppseq);
-  const int n_valid = (n_pages + ppb - 1) / ppb;  // runs holding a valid token
+  const int n_valid = (n_pages - p_lo + ppb - 1) / ppb;  // runs holding a valid token
   if (r >= n_valid) return;
 
   // This run: pages j0 .. j1 - 1, each in tiles of up to tt tokens; only the
-  // sequence's last page may be partial.
-  const int j0 = r * ppb, j1 = min(j0 + ppb, n_pages);
+  // sequence's last page may be partial. WIN: the first run's first `skip`
+  // tiles lie wholly before lo and are not loaded (items skip .. n_items - 1).
+  const int j0 = p_lo + r * ppb, j1 = min(j0 + ppb, n_pages);
   const int tpp = (ps + tt - 1) / tt;
   const int n_items = (j1 - j0 - 1) * tpp + (min(ps, len - (j1 - 1) * ps) + tt - 1) / tt;
+  int skip = 0;
+  if constexpr (WIN) skip = r == 0 ? (lo - p_lo * ps) / tt : 0;
   const int* trow = table + (size_t)b * ppseq;
 
   const Layout lay(G, D, tt, nbuf);
@@ -141,22 +159,24 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
     tok0 = (it % tpp) * tt;
     return min(tt, min(ps, len - j * ps) - tok0);
   };
+  // Item it of the run goes through buffer (it - skip) % nbuf.
   auto issue = [&](int it) {
     int j, tok0;
     const int n_tok = tokens(it, j, tok0);
-    const size_t src = (((size_t)kvh * P_total + (it == 0 ? first_page : trow[j])) * ps + tok0) * D;
-    bf16* kd = bufs + (size_t)(it % nbuf) * 2 * tile;
+    const size_t src = (((size_t)kvh * P_total + ((WIN ? j == j0 : it == 0) ? first_page : trow[j])) * ps + tok0) * D;
+    const int bi = (it - skip) % nbuf;
+    bf16* kd = bufs + (size_t)bi * 2 * tile;
     const uint32_t bytes = (uint32_t)n_tok * D * 2;
-    sm90::mbar_arrive_tx(&bar[it % nbuf], 2 * bytes);
-    sm90::bulk_load(kd, kp + src, bytes, &bar[it % nbuf]);
-    sm90::bulk_load(kd + tile, vp + src, bytes, &bar[it % nbuf]);
+    sm90::mbar_arrive_tx(&bar[bi], 2 * bytes);
+    sm90::bulk_load(kd, kp + src, bytes, &bar[bi]);
+    sm90::bulk_load(kd + tile, vp + src, bytes, &bar[bi]);
   };
   // Thread 0 starts the first copies before the block's barrier: the
   // mbarriers are its own until then.
   if (tid == 0) {
     for (int i = 0; i < nbuf; ++i) sm90::mbar_init(&bar[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int it = 0; it < min(nbuf, n_items); ++it) issue(it);
+    for (int it = skip; it < min(skip + nbuf, n_items); ++it) issue(it);
   }
   if (tid < G) {
     m_s[tid] = -INFINITY;
@@ -186,12 +206,12 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
     }
   }
 
-  for (int it = 0; it < n_items; ++it) {
+  for (int it = skip; it < n_items; ++it) {
     int j, tok0;
     const int n_tok = tokens(it, j, tok0);
-    const bf16* ks = bufs + (size_t)(it % nbuf) * 2 * tile;
+    const bf16* ks = bufs + (size_t)((it - skip) % nbuf) * 2 * tile;
     const bf16* vs = ks + tile;
-    sm90::mbar_wait(&bar[it % nbuf], (it / nbuf) & 1);
+    sm90::mbar_wait(&bar[(it - skip) % nbuf], ((it - skip) / nbuf) & 1);
 
     // Scores (base 2) of every token for the G heads; two token steps per
     // pass, so their shuffle reductions overlap.
@@ -221,8 +241,10 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
         for (int u = 0; u < 2; ++u) {
           const int t = t0 + u * NWARPS * tpw + gl;
           if (t < n_tok) {
+            bool seen = true;  // WIN: the first item's keys before lo are masked
+            if constexpr (WIN) seen = j * ps + tok0 + t >= lo;
 #pragma unroll
-            for (int g = 0; g < G; ++g) sc[g * tt + t] = dot[u][g];
+            for (int g = 0; g < G; ++g) sc[g * tt + t] = seen ? dot[u][g] : -INFINITY;
           }
         }
       }
@@ -235,7 +257,7 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
       for (int t = lane; t < n_tok; t += 32) mx = fmaxf(mx, sc[g * tt + t]);
 #pragma unroll
       for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[g], m_new = fmaxf(m_old, mx);  // n_tok >= 1: finite
+      const float m_old = m_s[g], m_new = fmaxf(m_old, mx);  // a tile holds a visible key: finite
       float sum = 0.f;
       for (int t = lane; t < n_tok; t += 32) {
         const float p = sm90::ex2(sc[g * tt + t] - m_new);
@@ -339,31 +361,32 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp, con
   if (tid == 0) cnt[b * KV + kvh] = 0;
 }
 
-template <int G>
+// n_runs: the grid's runs per sequence (ceil(ppseq / ppb) without a window).
+template <int G, bool WIN>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* lens, const void* table, void* o,
                    void* part, void* cnt, int B, int H, int KV, int D, int P_total, int ps, int ppseq, int ppb,
-                   float scale, cudaStream_t stream) {
+                   int n_runs, float scale, int window, cudaStream_t stream) {
   const int tt = min(ps, TILE_ELEMS / D);
   const int nbuf = ppb * ((ps + tt - 1) / tt) > 1 ? 2 : 1;
   const size_t smem = Layout(G, D, tt, nbuf).total;
   // The attribute is raised once per instance and device, as far as a
   // launch needs (48 KB needs none): no extra CUDA call on the decode path.
-  static size_t smem_allowed[64];
+  static size_t smem_allowed[64];  // one table per instance
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   size_t& allowed = smem_allowed[dev & 63];
   if (smem > 48 * 1024 && smem > allowed) {
-    e = cudaFuncSetAttribute(paged_decode_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(paged_decode_kernel<G, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     allowed = smem;
   }
-  const dim3 grid(KV, B, (ppseq + ppb - 1) / ppb);
-  paged_decode_kernel<G><<<grid, NTHREADS, smem, stream>>>(
+  const dim3 grid(KV, B, n_runs);
+  paged_decode_kernel<G, WIN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
       static_cast<const int*>(lens), static_cast<const int*>(table), static_cast<bf16*>(o),
       static_cast<float*>(part), static_cast<int*>(cnt), H, D, P_total, ps, ppseq, ppb, tt, nbuf,
-      scale * sm90::LOG2E);
+      scale * sm90::LOG2E, window);
   return cudaGetLastError();
 }
 
@@ -384,11 +407,28 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp, const void* vp, 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nr = (ppseq + ppb - 1) / ppb;
   switch (H / KV) {
-    case 1: return static_cast<int>(launch<1>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, scale, s));
-    case 2: return static_cast<int>(launch<2>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, scale, s));
-    case 4: return static_cast<int>(launch<4>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, scale, s));
-    case 8: return static_cast<int>(launch<8>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, scale, s));
+    case 1: return static_cast<int>(launch<1, false>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, nr, scale, 0, s));
+    case 2: return static_cast<int>(launch<2, false>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, nr, scale, 0, s));
+    case 4: return static_cast<int>(launch<4, false>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, nr, scale, 0, s));
+    case 8: return static_cast<int>(launch<8, false>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq, ppb, nr, scale, 0, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The sliding-window decode: each sequence's query sees its last `window`
+// keys (len - window <= j < len); `n_runs` runs of ppb pages per sequence
+// cover the pages a window can span. Group 8 only (the window's model).
+// `part` holds B * KV * n_runs * (H / KV) * (D + 2) floats. Returns as above.
+extern "C" int paged_decode_window_bf16(const void* q, const void* kp, const void* vp, const void* lens,
+                                        const void* table, void* o, void* part, void* cnt, int B, int H, int KV,
+                                        int D, int P_total, int ps, int ppseq, int ppb, int n_runs, float scale,
+                                        int window, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV != 8 || D % 8 != 0 || D <= 0 || D > 256 || ps <= 0 ||
+      ppseq <= 0 || ppb <= 0 || n_runs <= 0 || window <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch<8, true>(q, kp, vp, lens, table, o, part, cnt, B, H, KV, D, P_total, ps, ppseq,
+                                          ppb, n_runs, scale, window, static_cast<cudaStream_t>(stream)));
 }

@@ -19,6 +19,11 @@ the TPU kernel and the plain version, the main path never calls it.
 Length 0: the TPU kernel writes 0 for a sequence with no valid token (its
 jnp reference gave the mean of V instead). Every version here follows the
 kernel.
+
+Sliding window (``window`` > 0, a sliding layer): the query sees only the
+last ``window`` keys, ``length - window <= j < length``. K4's window
+instance starts each sequence's runs at the page of key ``length - window``
+and plans its runs over the pages a window can span (``window_pages``).
 """
 from __future__ import annotations
 
@@ -35,10 +40,17 @@ NEG_INF = -1e30
 LAUNCHES = 0
 
 
-def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, scale=None):
+def window_pages(window: int, page_size: int, pages_per_seq: int) -> int:
+    """The most pages a window of ``window`` keys can touch: its keys span
+    (window - 1) // page_size + 2 pages when they do not start a page."""
+    return min(pages_per_seq, (window - 1) // page_size + 2)
+
+
+def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, scale=None, window=0):
     """q: [B, H, D]; k_pages/v_pages: [KV, P_total, ps, D]; lengths: [B]
     (valid tokens per sequence, INCLUDING the current position);
-    page_indices: [B, pages_per_seq] -> [B, H, D]."""
+    page_indices: [B, pages_per_seq] -> [B, H, D]. ``window`` > 0: only the
+    last ``window`` of those tokens are seen."""
     B, H, D = q.shape
     KV, _, ps, _ = k_pages.shape
     group = H // KV
@@ -51,8 +63,10 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, scale=
     qg = q.reshape(B, KV, group, D)
     s = torch.einsum("bkgd,bksd->bkgs", qg, k).float() * scale
     pos = torch.arange(ppseq * ps, device=q.device)
-    valid = (pos[None, :] < lengths[:, None])[:, None, None, :]
-    s = s.masked_fill(~valid, NEG_INF)
+    valid = pos[None, :] < lengths[:, None]
+    if window:
+        valid = valid & (pos[None, :] >= lengths[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bkgs,bksd->bkgd", p, v)
     o = o.masked_fill((lengths <= 0)[:, None, None, None], 0)
@@ -99,15 +113,27 @@ def merge_partials(m, l, acc):
     return torch.where(den[..., None] > 0, num / den.clamp_min(1e-30)[..., None], torch.zeros_like(num))
 
 
-def paged_attention_split_reference(q, k_pages, v_pages, lengths, page_indices, scale=None, pages_per_run=1):
+def paged_attention_split_reference(q, k_pages, v_pages, lengths, page_indices, scale=None, pages_per_run=1,
+                                    window=0):
     """K4's split-page algebra in plain PyTorch, fp32: the pages of each
     sequence in runs of ``pages_per_run``, each run's partial (m, l, acc)
     over its valid tokens, merged in page order (``merge_partials``). Same
-    arguments and result as ``paged_attention_reference``; tests only."""
+    arguments and result as ``paged_attention_reference``; tests only.
+    ``window`` > 0: the runs cover the ``window_pages`` pages from the page
+    of key length - window, as K4's window instance plans them."""
     B, H, D = q.shape
     KV, _, ps, _ = k_pages.shape
     group = H // KV
     ppseq = page_indices.shape[1]
+    first = torch.zeros(B, dtype=torch.long, device=q.device)  # the table's first page of the runs
+    lo = torch.zeros_like(first)
+    if window:
+        lo = (lengths.long() - window).clamp(min=0)
+        first = lo // ps
+        W = window_pages(window, ps, ppseq)
+        cols = (first[:, None] + torch.arange(W, device=q.device)).clamp(max=ppseq - 1)
+        page_indices = page_indices.gather(1, cols)
+        ppseq = W
     n_runs = -(-ppseq // pages_per_run)
     pad = n_runs * pages_per_run - ppseq
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -116,8 +142,8 @@ def paged_attention_split_reference(q, k_pages, v_pages, lengths, page_indices, 
     v = v_pages[:, idx].permute(1, 0, 2, 3, 4).float()
     qg = q.reshape(B, KV, group, D).float()
     s = torch.einsum("bkgd,bkjtd->bkgjt", qg, k) * scale  # [B, KV, G, ppseq, ps]
-    pos = torch.arange(ppseq * ps, device=q.device).reshape(ppseq, ps)
-    valid = pos[None] < lengths.reshape(B, 1, 1)  # [B, ppseq, ps]
+    pos = torch.arange(ppseq * ps, device=q.device).reshape(ppseq, ps)[None] + (first * ps).reshape(B, 1, 1)
+    valid = (pos < lengths.reshape(B, 1, 1)) & (pos >= lo.reshape(B, 1, 1))  # [B, ppseq, ps]
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     s = torch.nn.functional.pad(s, (0, 0, 0, pad), value=float("-inf")).reshape(B, KV, group, n_runs, -1)
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(B, KV, n_runs, -1, D)
@@ -140,6 +166,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode_bf16.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, p]
         lib.paged_decode_bf16.restype = i
+        lib.paged_decode_window_bf16.argtypes = [p] * 8 + [i] * 9 + [ctypes.c_float, i, p]
+        lib.paged_decode_window_bf16.restype = i
         lib.paged_decode_error_string.argtypes = [i]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -176,8 +204,9 @@ def _n_sm(device):
     return _N_SM[device]
 
 
-def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None):
-    """Launches kernel K4 on CUDA tensors -> [B, H, D] bf16."""
+def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None, window=0):
+    """Launches kernel K4 on CUDA tensors -> [B, H, D] bf16; ``window`` > 0
+    (group 8 only) its sliding-window instance."""
     global LAUNCHES
     B, H, D = q.shape
     KV, P_total, ps, Dk = k_pages.shape
@@ -193,30 +222,38 @@ def paged_decode(q, k_pages, v_pages, lengths, page_indices, scale=None):
         raise ValueError(f"paged kernel: H={H}, KV={KV}, D={D} unsupported (group in 1/2/4/8, D % 8 == 0, D <= 256)")
     if lengths.shape != (B,) or page_indices.dim() != 2 or page_indices.shape[0] != B:
         raise ValueError("paged kernel: lengths must be [B] and page_indices [B, pages_per_seq]")
+    if window and H // KV != 8:
+        raise ValueError(f"paged kernel: the window instance is built for group 8, not {H // KV}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     ppseq = page_indices.shape[1]
-    ppb = pages_per_block(B, KV, ppseq, ps, _n_sm(q.device))
+    span = window_pages(window, ps, ppseq) if window else ppseq  # the pages the runs cover
+    ppb = pages_per_block(B, KV, span, ps, _n_sm(q.device))
+    n_runs = -(-span // ppb)
     o = torch.empty_like(q)
     # Partials [B, KV, runs, group, D + 2] fp32: (m, l, acc) per run and q head.
-    part = torch.empty(B * -(-ppseq // ppb) * H * (D + 2), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * n_runs * H * (D + 2), dtype=torch.float32, device=q.device)
     cnt = _counters(q.device, B * KV)
     lib = _lib()
-    err = lib.paged_decode_bf16(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-        page_indices.data_ptr(), o.data_ptr(), part.data_ptr(), cnt.data_ptr(), B, H, KV, D, P_total, ps,
-        ppseq, ppb, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(),
+            o.data_ptr(), part.data_ptr(), cnt.data_ptr(), B, H, KV, D, P_total, ps, ppseq, ppb)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if window:
+        err = lib.paged_decode_window_bf16(*args, n_runs, float(scale), int(window), stream)
+    else:
+        err = lib.paged_decode_bf16(*args, float(scale), stream)
     if err:
         raise RuntimeError(f"paged kernel launch failed: {lib.paged_decode_error_string(err).decode()}")
     LAUNCHES += 1
     return o
 
 
-def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None, mesh=None, head_axis="tensor"):
+def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None, mesh=None, head_axis="tensor",
+                    window=0):
     """Paged decode attention. q: [B, H, D] (one query token per sequence);
     k_pages/v_pages: [KV, P_total, page_size, D]; lengths: [B] valid tokens
     per sequence including the current one; page_indices: [B, pages_per_seq]
     (entries past a sequence's length must still be valid page ids: use 0).
+    ``window`` > 0: each query sees only its last ``window`` keys.
 
     CPU tensors take the plain version; CUDA tensors launch kernel K4.
 
@@ -232,7 +269,7 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None, mesh
         from ray_tpu_torch.parallel.sharding import PartitionSpec as P
 
         def body(qs, kps, vps, lens, tables):
-            return [paged_attention(*a, scale=scale) for a in zip(qs, kps, vps, lens, tables)]
+            return [paged_attention(*a, scale=scale, window=window) for a in zip(qs, kps, vps, lens, tables)]
 
         pool = P(head_axis, None, None, None)
         return shard_map(body, mesh=mesh, in_specs=(P(None, head_axis, None), pool, pool, P(None), P(None, None)),
@@ -241,5 +278,5 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None, mesh
     if H % KV:
         raise ValueError(f"n_heads {H} not divisible by kv_heads {KV}")
     if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, scale)
-    return paged_decode(q, k_pages, v_pages, lengths, page_indices, scale)
+        return paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, scale, window)
+    return paged_decode(q, k_pages, v_pages, lengths, page_indices, scale, window)

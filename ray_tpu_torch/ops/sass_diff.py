@@ -33,7 +33,10 @@ import sys
 from pathlib import Path
 
 _FUNC = re.compile(r"^\s*Function\s*:\s*(\S+)")
-_KEY = re.compile(r"\d+([a-z][a-z_]*_kernel)ILi(\d+)E")  # the length-prefixed name, its int argument
+# The length-prefixed name, its int argument and an optional bool one: an
+# instance whose bool is false keeps the key of the kernel before the bool
+# was added (``flash_fwd_kernel<128, false>`` is ``flash_fwd_kernel<128>``).
+_KEY = re.compile(r"\d+([a-z][a-z_]*_kernel)ILi(\d+)E(?:Lb([01])E)?")
 _ANON = re.compile(r"_INTERNAL_\w+")
 
 
@@ -64,7 +67,8 @@ def functions(lib: Path) -> dict[str, list[str]]:
         m = _FUNC.match(line)
         if m:
             k = _KEY.search(m.group(1))
-            cur = f"{k.group(1)}<{k.group(2)}>" if k else _ANON.sub("ANON", m.group(1))
+            cur = (f"{k.group(1)}<{k.group(2)}{', true' if k.group(3) == '1' else ''}>" if k
+                   else _ANON.sub("ANON", m.group(1)))
             out[cur] = []
             continue
         if cur is None:
